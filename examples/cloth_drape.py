@@ -18,6 +18,7 @@ import jax.numpy as jnp
 sys.path.insert(0, os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 
+from zpc_tpu.utils.compile_cache import enable_compile_cache
 from zpc_tpu.sim.cloth import make_cloth_grid, implicit_step
 from zpc_tpu.utils.io import write_obj
 
@@ -36,6 +37,7 @@ def main():
     args = ap.parse_args()
     if args.cpu:
         jax.config.update("jax_platforms", "cpu")
+    enable_compile_cache()
 
     pins = (0, (args.nx - 1) * args.ny) if args.pin else ()
     sim, x = make_cloth_grid(

@@ -1,6 +1,6 @@
 """Dam break: J-only fluid MPM + surface reconstruction + OBJ export.
 
-Runs on CPU (pass --cpu) or the TPU.  End-to-end drive of the fluid
+Runs on CPU (pass --cpu) or the GPU.  End-to-end drive of the fluid
 pipeline (sim/fluid.py), particle surfacing (levelset_from_points), and
 marching-tets meshing (geometry/marching.py).
 
@@ -37,6 +37,9 @@ def main():
     from zpc_tpu.models.constitutive import EquationOfState
     from zpc_tpu.sim.mpm import MPMSim
     from zpc_tpu.sim.fluid import make_fluid_state, explicit_fluid_step
+    from zpc_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
 
     rng = np.random.default_rng(0)
     # water column in the left quarter of a unit box

@@ -16,6 +16,7 @@ import jax.numpy as jnp
 
 sys.path.insert(0, __file__.rsplit("/", 2)[0])
 
+from zpc_tpu.utils.compile_cache import enable_compile_cache
 from zpc_tpu.geometry.collider import Collider, ColliderType
 from zpc_tpu.geometry.levelset import HalfSpace
 from zpc_tpu.models.constitutive import (EquationOfState, FixedCorotated,
@@ -72,6 +73,7 @@ def main():
     ap.add_argument("--particles", type=int, default=32768)
     ap.add_argument("--out", default=None, help="bgeo output path")
     args = ap.parse_args()
+    enable_compile_cache()
 
     sim, st, dt = build(args.material, args.particles)
     step = jax.jit(lambda s: explicit_step(sim, s, jnp.float32(dt)))

@@ -14,6 +14,7 @@ import jax.numpy as jnp
 
 sys.path.insert(0, __file__.rsplit("/", 2)[0])
 
+from zpc_tpu.utils.compile_cache import enable_compile_cache
 from zpc_tpu.geometry.collider import Collider, ColliderType
 from zpc_tpu.geometry.levelset import HalfSpace
 from zpc_tpu.models.constitutive import FixedCorotated
@@ -27,6 +28,7 @@ def main():
     ap.add_argument("--binned", action="store_true",
                     help="use the binned2 fast path")
     args = ap.parse_args()
+    enable_compile_cache()
 
     rng = np.random.default_rng(3)
     # two discs

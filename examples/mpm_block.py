@@ -2,7 +2,7 @@
 
 256k-particle elastic block falling onto a sticky ground plane inside a box,
 quadratic APIC transfers on a block-sparse grid — the reference's flagship
-workload (SURVEY §3.3), re-designed TPU-native.
+workload (SURVEY §3.3), re-designed on XLA.
 
 Run:  python examples/mpm_block.py [--particles 262144] [--steps 100]
 """
@@ -17,6 +17,7 @@ import jax.numpy as jnp
 
 sys.path.insert(0, __file__.rsplit("/", 2)[0])
 
+from zpc_tpu.utils.compile_cache import enable_compile_cache
 from zpc_tpu.geometry.collider import Collider, ColliderType
 from zpc_tpu.geometry.levelset import HalfSpace, Cuboid, ComplementLevelSet
 from zpc_tpu.models.constitutive import FixedCorotated
@@ -56,6 +57,7 @@ def main():
     ap.add_argument("--vdb", type=str, default="",
                     help="write the final grid to this .vdb file")
     args = ap.parse_args()
+    enable_compile_cache()
 
     sim, st, dt = build(args.particles, args.dx)
     print(f"n={args.particles} dx={args.dx} dt={dt:.2e} "

@@ -635,17 +635,26 @@ def test_nse_fused_matches_bruteforce():
         np.testing.assert_array_equal(got[~none], want[~none])
 
 
-def test_nse_pallas_matches_chunked():
-    """The Pallas fused NSE kernel (interpret mode on CPU) == the XLA
-    chunk-scan form, both directions, multi-block + ragged tail."""
-    from zpc_tpu.ops.nse_pallas import CHUNK, nse_pallas
+@pytest.mark.parametrize("strict", [False, True])
+def test_nse_chunked_matches_numpy_bruteforce(strict):
+    """The fused chunk-scan NSE sweep at its default chunk (the only form
+    for g >= 1024) == an all-pairs numpy brute force: several chunks plus
+    a ragged tail."""
     from zpc_tpu.containers.bvh import _nse_dir_chunked
     rng = np.random.default_rng(5)
-    g = 2 * CHUNK + 1234
-    d = jnp.asarray(rng.integers(1, 64, g, dtype=np.int32))
-    for strict in (False, True):
-        want = np.asarray(_nse_dir_chunked(d, strict))
-        got = np.asarray(nse_pallas(d, strict=strict, interpret=True))
-        none = want < 0
-        assert ((got < 0) == none).all()
-        np.testing.assert_array_equal(got[~none], want[~none])
+    g = 2 * 4096 + 1234
+    d = rng.integers(1, 64, g).astype(np.int32)
+    want = np.full(g, -1, np.int64)
+    j = np.arange(g)
+    for i0 in range(0, g, 1024):
+        i = np.arange(i0, min(i0 + 1024, g))[:, None]
+        ok = (j[None, :] < i) & ((d[None, :] < d[i]) if strict
+                                 else (d[None, :] <= d[i]))
+        last = g - 1 - np.argmax(ok[:, ::-1], axis=1)
+        want[i[:, 0]] = np.where(ok.any(axis=1), last, -1)
+    got = np.asarray(jax.jit(
+        lambda x: _nse_dir_chunked(x, strict))(jnp.asarray(d)))
+    none = got < 0
+    assert ((want < 0) == none).all()
+    np.testing.assert_array_equal(got[~none] >> 6, want[~none])
+    np.testing.assert_array_equal(got[~none] & 63, d[want[~none]])

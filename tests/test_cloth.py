@@ -527,8 +527,7 @@ def test_self_contact_candidates_complete_decomposed():
     """Broad phase at DECOMPOSED scale (M > 512 routes through the
     cells=8 banded join — round 5): completeness oracle on a 24x24
     two-layer sheet, which is exactly the adversarial flat-slab
-    geometry where the plain band certified nothing (in-band 0.0000,
-    probe_r5_cloth2.py)."""
+    geometry where the plain band certified nothing (in-band 0.0000)."""
     from zpc_tpu.geometry.distance import point_triangle_closest
     from zpc_tpu.sim.cloth import self_contact_candidates
     dhat = 0.02

@@ -162,7 +162,7 @@ class TestContactCoupledSolve:
 
 def test_contact_precond_variant_converges(rng):
     """The barrier-diag Jacobi variant (round-4 study: a documented
-    NEGATIVE result at stiff kappa — docs/design.md) must still compile
+    NEGATIVE result at stiff kappa) must still compile
     and converge; it is kept as evidence, not as the default."""
     x = np.stack([rng.uniform(0.3, 0.7, 512),
                   rng.uniform(0.21, 0.3, 512),

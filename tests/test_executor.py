@@ -10,7 +10,7 @@ import zpc_tpu as z
 
 class TestExecutor:
     def test_fluent_settings_are_value_semantic(self):
-        a = z.tpu_exec()
+        a = z.jit_exec()
         b = a.profile(True).sync(True)
         assert not a.profile_flag and b.profile_flag
         assert not a.sync_flag and b.sync_flag
@@ -27,24 +27,24 @@ class TestExecutor:
         def f(a):
             return jnp.sum(a * a)
 
-        r1 = z.tpu_exec().run(f, x)
+        r1 = z.jit_exec().run(f, x)
         r2 = z.seq_exec().run(f, x)
         np.testing.assert_allclose(float(r1), float(r2), rtol=1e-6)
 
     def test_foreach(self):
-        pol = z.tpu_exec()
+        pol = z.jit_exec()
         out = pol.foreach(lambda i: i * i, 10)
         np.testing.assert_array_equal(np.asarray(out),
                                       np.arange(10) ** 2)
 
     def test_map(self, rng):
         x = jnp.asarray(rng.standard_normal((64, 3)), jnp.float32)
-        out = z.tpu_exec().map(lambda v: jnp.sum(v * v), x)
+        out = z.jit_exec().map(lambda v: jnp.sum(v * v), x)
         np.testing.assert_allclose(np.asarray(out),
                                    (np.asarray(x) ** 2).sum(1), rtol=1e-5)
 
     def test_checkify_catches_oob(self):
-        pol = z.tpu_exec().check(True)
+        pol = z.jit_exec().check(True)
 
         def bad(a):
             return a[jnp.asarray(100)]   # out of bounds
@@ -54,7 +54,7 @@ class TestExecutor:
             pol.run(bad, x)
 
     def test_checkify_catches_nan(self):
-        pol = z.tpu_exec().check(True)
+        pol = z.jit_exec().check(True)
 
         def bad(a):
             return jnp.log(a - 10.0)  # negative -> nan
@@ -63,19 +63,19 @@ class TestExecutor:
             pol.run(bad, jnp.arange(4.0))
 
     def test_profile_prints(self, capsys):
-        pol = z.tpu_exec().profile(True)
+        pol = z.jit_exec().profile(True)
         pol.run(lambda x: x + 1, jnp.zeros(4), label="probe")
         out = capsys.readouterr().out
         assert "probe" in out and "ms" in out
 
     def test_scope_timer(self, capsys):
-        pol = z.tpu_exec().profile(True)
+        pol = z.jit_exec().profile(True)
         with pol.scope("region"):
             pass
         assert "region" in capsys.readouterr().out
 
     def test_donation(self, rng):
-        pol = z.tpu_exec()
+        pol = z.jit_exec()
         f = pol.compile(lambda a: a * 2, donate_argnums=(0,))
         x = jnp.asarray(rng.standard_normal(8), jnp.float32)
         xs = np.asarray(x)

@@ -112,8 +112,7 @@ class TestScans:
 
 class TestInsidePallas:
     """The point of the module: the same ops compile inside a Pallas
-    kernel body (interpret mode here; Mosaic lowers roll/reshape/select
-    — the scan_pallas kernel is prior art on hardware)."""
+    kernel body (interpret mode here)."""
 
     def _run_kernel(self, fn, x, out_dtype=None):
         from jax.experimental import pallas as pl

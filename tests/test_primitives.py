@@ -9,7 +9,7 @@ import pytest
 import zpc_tpu as z
 from zpc_tpu.parallel import primitives as P
 
-POLICIES = [z.tpu_exec(), z.seq_exec()]
+POLICIES = [z.jit_exec(), z.seq_exec()]
 POL_IDS = ["jit", "seq"]
 
 

@@ -117,3 +117,32 @@ class TestGraph:
         caps = jnp.asarray([5.0, 1.0], jnp.float32)
         A = csr_from_coo(rows, cols, caps, 3, 3)
         assert abs(float(max_flow(A, 0, 2)) - 1.0) < 1e-5
+
+
+class TestCompileCache:
+    @pytest.mark.parametrize("env_dir", [True, False])
+    def test_cache_dir(self, env_dir, tmp_path, monkeypatch):
+        """JAX_COMPILATION_CACHE_DIR wins and is left to JAX; unset, the
+        cache goes to <checkout>/.jax_cache."""
+        import jax
+        from zpc_tpu.utils.compile_cache import (CHECKOUT_CACHE_DIR,
+                                                 enable_compile_cache)
+        before = jax.config.jax_compilation_cache_dir
+        try:
+            if env_dir:
+                monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR",
+                                   str(tmp_path))
+                assert enable_compile_cache() == str(tmp_path)
+                assert jax.config.jax_compilation_cache_dir == before
+            else:
+                monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR",
+                                   raising=False)
+                repo = os.path.dirname(os.path.dirname(
+                    os.path.abspath(__file__)))
+                assert CHECKOUT_CACHE_DIR == os.path.join(repo,
+                                                          ".jax_cache")
+                assert enable_compile_cache() == CHECKOUT_CACHE_DIR
+                assert (jax.config.jax_compilation_cache_dir
+                        == CHECKOUT_CACHE_DIR)
+        finally:
+            jax.config.update("jax_compilation_cache_dir", before)

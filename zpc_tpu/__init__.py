@@ -1,7 +1,7 @@
-"""zpc_tpu — a TPU-native parallel-compute framework for physics simulation.
+"""zpc_tpu — a parallel-compute framework for physics simulation on JAX.
 
-A ground-up re-design of the capabilities of zenustech/zpc (zensim) for
-TPU hardware: JAX/XLA is the device compiler, Pallas the kernel language,
+A ground-up re-design of the capabilities of zenustech/zpc (zensim):
+JAX/XLA is the device compiler (the GPU is the target accelerator),
 ``jax.sharding`` meshes the multi-device fabric.  See ``SURVEY.md`` at the
 repo root for the reference structural map this build follows.
 

@@ -1,11 +1,11 @@
-"""``BlockTable`` — the TPU-native spatial hash table.
+"""``BlockTable`` — the sort-built spatial hash table.
 
 The reference uses concurrent GPU hash tables for block partitioning:
 ``HashTable`` open addressing with ``atomicKeyCAS`` spin insert
 (container/HashTable.hpp:356-427) and ``bht`` bucketed cuckoo hashing with
-warp-cooperative inserts (container/Bht.hpp:489-560).  TPUs have no device
-atomics or per-thread divergent probing, so concurrent insertion is replaced
-by the **sort-based build** (SURVEY §7 hard-part 2):
+warp-cooperative inserts (container/Bht.hpp:489-560).  Here concurrent
+insertion (device atomics, per-thread divergent probing) is replaced by the
+**sort-based build** (SURVEY §7 hard-part 2):
 
     pack block coords -> stable sort -> unique-compact -> sorted key table
 

@@ -1,4 +1,4 @@
-"""Linear BVH (LBVH) — GPU-style broad-phase, TPU-native.
+"""Linear BVH (LBVH) — GPU-style broad-phase.
 
 Reference: ``container/Bvh.hpp`` — Karras-2012 build (morton codes :184,
 radix sort, split-prefix topology :198-338 with ``clz`` :346, ordered
@@ -7,10 +7,10 @@ stackless traversal queries (``iter_neighbors`` :662-733, ``find_nearest``
 :551-621, ``ray_intersect`` :526-543); plus ``BvttFront`` pair caching
 (container/Bvtt.hpp).
 
-TPU re-design:
+Re-design:
 
 * **Build** is fully vectorized: morton quantization -> ``lax.sort`` ->
-  Karras split computation *per internal node in parallel* (pure VPU integer
+  Karras split computation *per internal node in parallel* (pure integer
   math, no per-thread loops beyond two bounded ``while_loop`` binary
   searches) -> **levelwise refit**: instead of atomic arrival flags, refit
   iterates ``ceil(log2(n))`` rounds updating every internal node from its
@@ -49,12 +49,12 @@ def _rank_sorted(codes, vals, side: str):
     """``searchsorted(codes, vals, side)`` for SORTED ``vals``: one
     packed merge sort + cumsum + compaction scatter.
 
-    ``jnp.searchsorted`` costs ~75 ms per 1M queries on v5e (gather-
-    chain binary search); both arrays here are already sorted, so the
-    ranks come from a single 2M-element 1-op sort (~2 ms) of
-    ``(value << 1) | origin-tag`` — u32 so the int32-max invalid-leaf
-    sentinel survives the shift (benchmarks/probe_bvh_win.py: the
-    whole front drops 160 -> 13.7 ms, bit-exact vs searchsorted).
+    ``jnp.searchsorted`` is a chain of dependent gathers (a binary search);
+    both arrays here are already sorted, so the ranks come from a single
+    2M-element 1-op sort of ``(value << 1) | origin-tag`` — u32 so the
+    int32-max invalid-leaf sentinel survives the shift; bit-exact vs
+    searchsorted (chosen before the move to the GPU; not re-measured on the
+    H100).
     """
     m = vals.shape[0]
     tq = jnp.uint32(0 if side == "left" else 1)
@@ -120,20 +120,19 @@ class LBvh:
 
 
 def _nse_dir_chunked(d: jax.Array, strict: bool, chunk: int = 8192):
-    """One direction of the Karras NSE sweep, FUSED over all 63 values
-    (round 5, VERDICT item 7): nearest j < i with ``d[j] <= d[i]``
+    """One direction of the Karras NSE sweep, FUSED over all 63 values:
+    nearest j < i with ``d[j] <= d[i]``
     (``strict=False``) or ``d[j] < d[i]`` (``strict=True``), as ONE
     ``lax.scan`` over position chunks carrying a 64-wide register of
     packed ``(pos << 6) | value`` bests.
 
-    Per chunk the masked per-value positions form a [64, C] block whose
-    axis-1 cummax, 64-carry fold, and axis-0 value-prefix cummax all
-    stay in on-chip scratch — the round-4 batched [64, g] attempt was
-    semantics-identical but materialized [64, 1M] intermediates in HBM
-    and measured 2.1x SLOWER than the 126-scan loop; chunking is the
-    same scratch-cliff fix as mpm_binned2.chunk_bins.  Max-by-position
-    wins ties by construction (positions are unique); the low 6 bits
-    recover the winner's d value, replacing the run_lv/run_rv carries.
+    Per chunk the masked per-value positions form a [64, C] block whose axis-1
+    cummax, 64-carry fold, and axis-0 value-prefix cummax all stay small — a
+    batched [64, g] form is semantics-identical but materializes [64, g]
+    intermediates in device memory and was slower than the 126-scan loop
+    (chosen before the move to the GPU; not re-measured on the H100).
+    Max-by-position wins ties by construction (positions are unique); the low 6
+    bits recover the winner's d value, replacing the run_lv/run_rv carries.
 
     Returns packed int32 [g]: ``(pos << 6) | d[pos]`` of the nearest
     element, or a negative sentinel when none exists.
@@ -182,14 +181,14 @@ def _karras_topology(codes: jax.Array):
     n-1 gaps: internal node i splits at gap i, covers leaves
     ``[NSEl(i)+1, NSEr(i)]`` with NSEl = nearest j<i with d[j] <= d[i],
     NSEr = nearest j>i with d[j] < d[i] (leftmost-minimum-wins
-    tie-break), and its parent is the deeper (larger-d) of the two NSE
-    gaps (equal d: the right gap is the left one's descendant, so it is
-    the deeper).  ``d`` lives in a 65-value alphabet (cpl in [0,32],
-    +32 index augmentation for duplicate codes), so both NSE sweeps are
-    65 masked cummax/cummin passes over [n] — no gathers, no binary
-    searches.  The previous form ran the reference's per-thread doubling
-    + binary searches (Bvh.hpp:198-338) as ~67 vectorized gather rounds:
-    457 ms at 1M primitives; this form measures ~25 ms (sort-dominated).
+    tie-break), and its parent is the deeper (larger-d) of the two NSE gaps
+    (equal d: the right gap is the left one's descendant, so it is the deeper).
+    ``d`` lives in a 65-value alphabet (cpl in [0,32], +32 index augmentation
+    for duplicate codes), so both NSE sweeps are 65 masked cummax/cummin passes
+    over [n] — no gathers, no binary searches.  It replaces the reference's
+    per-thread doubling + binary searches (Bvh.hpp:198-338), which vectorize
+    into ~67 dependent gather rounds (chosen before the move to the GPU; not
+    re-measured on the H100).
 
     Returns (left, right, range_lo, range_hi) for the n-1 internal
     nodes, renumbered so the root is node 0 (query entry convention).
@@ -208,41 +207,19 @@ def _karras_topology(codes: jax.Array):
     # d = 0 impossible (codes and the invalid sentinel are non-negative:
     # sign bits equal); d = 64 impossible (tie delta = 32 + cpl(i, i+1)
     # and adjacent indices always differ)
-    from ..ops.nse_pallas import nse_pallas, nse_supported
-    use_pallas = (jax.default_backend() == "tpu" and nse_supported(d))
-    if use_pallas or g >= 1024:
-        # FUSED sweep (round 5): both directions over all 63 values in
-        # two streaming passes.  On TPU the Pallas kernel keeps the
-        # [64, 128] per-subrow state in VMEM (ops/nse_pallas.py); the
-        # XLA chunk-scan form (_nse_dir_chunked) is the CPU/test path
-        # — semantics identical, oracle-pinned (tests/test_bvh.py).
-        # The 126-scan loop below remains as the small-size form.
-        _dir = (lambda dd, s: nse_pallas(dd, strict=s)) if use_pallas \
-            else (lambda dd, s: _nse_dir_chunked(dd, s))
-        sel_l = _dir(d, False)
+    if g >= 1024:
+        # fused sweep: both directions over all 63 values in two
+        # streaming chunk-scans (_nse_dir_chunked, oracle-pinned in
+        # tests/test_bvh.py); the 126-scan loop below is the small-size
+        # form
+        sel_l = _nse_dir_chunked(d, False)
         nsel = jnp.where(sel_l < 0, -1, sel_l >> 6)
         dl = jnp.where(sel_l < 0, -1, sel_l & 63)
-        sel_r = _dir(d[::-1], True)[::-1]
+        sel_r = _nse_dir_chunked(d[::-1], True)[::-1]
         nser = jnp.where(sel_r < 0, BIG, g - 1 - (sel_r >> 6))
         dr = jnp.where(sel_r < 0, -1, sel_r & 63)
     else:
-        # the 63-value sweep is 126 cumulative scans: XLA's
-        # cummax/cummin are log-depth multi-pass (~0.38 ms each at 1M
-        # -> 50 ms measured, benchmarks/probe_karras.py); the Pallas
-        # chunked-carry scan is one streaming pass (~3.7x) — route
-        # there when on TPU and big enough
-        from ..ops.scan_pallas import scan_pallas, scan_supported
-        fast = (jax.default_backend() == "tpu"
-                and scan_supported(d, "max"))
-
-        def cummax_fwd(x):
-            return scan_pallas(x, op="max") if fast else jax.lax.cummax(x)
-
-        def cummin_rev(x):
-            if fast:
-                return scan_pallas(x[::-1], op="min")[::-1]
-            return jax.lax.cummin(x, reverse=True)
-
+        # the 63-value sweep as 126 cumulative scans
         nsel, nser = none_l, none_r
         dl = jnp.full((g,), -1, jnp.int32)   # d at nsel (-1 = none)
         dr = jnp.full((g,), -1, jnp.int32)   # d at nser
@@ -254,13 +231,13 @@ def _karras_topology(codes: jax.Array):
             # NSEr first: strict (u < d[i]) -> capture BEFORE folding in v
             nser = jnp.where(eq, run_r, nser)
             dr = jnp.where(eq, run_rv, dr)
-            fp = cummin_rev(jnp.where(eq, gi, BIG))
+            fp = jax.lax.cummin(jnp.where(eq, gi, BIG), reverse=True)
             fp_excl = jnp.concatenate([fp[1:], none_r[:1]])
             br = fp_excl < run_r
             run_rv = jnp.where(br, v, run_rv)
             run_r = jnp.where(br, fp_excl, run_r)
             # NSEl: non-strict (u <= d[i]) -> capture AFTER folding in v
-            lp = cummax_fwd(jnp.where(eq, gi, -1))
+            lp = jax.lax.cummax(jnp.where(eq, gi, -1))
             lp_excl = jnp.concatenate([none_l[:1], lp[:-1]])
             bl = lp_excl > run_l
             run_lv = jnp.where(bl, v, run_lv)
@@ -288,10 +265,11 @@ def _karras_topology(codes: jax.Array):
     pars = jnp.concatenate([par, leaf_par])
     isl = jnp.concatenate([int_isl, leaf_isl])
     has_par = jnp.concatenate([~is_root, jnp.ones((n,), bool)])
-    # children via ONE unstable 2-op sort (each [2n-1]->[g] scatter costs
-    # ~12 ms at 1M, probe_karras; the sort ~1 ms): every internal node
-    # has exactly two children, so sorting by (parent*2 + is_right) lays
-    # them out pairwise and left/right fall out as strided slices
+    # children via ONE unstable 2-op sort instead of [2n-1]->[g] scatters
+    # (chosen before the move to the GPU; not re-measured on the H100): every
+    # internal node has exactly two children, so sorting by (parent*2 +
+    # is_right) lays them out pairwise and left/right fall out as strided
+    # slices
     ckey = jnp.where(has_par,
                      pars * 2 + jnp.where(isl, 0, 1).astype(jnp.int32),
                      jnp.int32(2 * g))       # the root sorts last
@@ -443,8 +421,8 @@ def build_lbvh_complete(prim_lo: jax.Array, prim_hi: jax.Array,
     morton order.
 
     The Karras topology needs ~67 dynamic-index passes over the code
-    array (doubling + two binary searches, each a gather at 1M prims →
-    hundreds of ms on TPU).  A complete tree over the same sorted leaf
+    array (doubling + two binary searches, each a gather).  A complete
+    tree over the same sorted leaf
     order replaces ALL of it with arithmetic: heap numbering (node i →
     children 2i+1, 2i+2) lands leaves exactly on the LBvh convention
     [m-1, 2m-1), escape pointers come from log2(m) rounds of pure vector
@@ -609,15 +587,15 @@ def query_overlaps_sorted(bvh: LBvh, q_lo: jax.Array, q_hi: jax.Array,
                           _upto: str = ""):
     """High-throughput AABB overlap query: sorted banded tile join.
 
-    TPU-native replacement for per-query tree walks (which serialize into
-    lockstep gather chains at ~0.1 Mq/s): sort the queries by morton code
+    A replacement for per-query tree walks (which serialize into
+    lockstep gather chains): sort the queries by morton code
     — then, because node/leaf order is morton too, every query's
     overlapping leaves live in a contiguous sorted-leaf interval
     ``[searchsorted(codes, m(qlo - h)), searchsorted(codes, m(qhi + h))]``
     (componentwise dominance of morton codes; ``h`` = max leaf
     half-extent).  Queries tile the diagonal; each tile tests its ``tile``
-    queries against a 3-tile leaf window with pure VPU compares over
-    static slices — zero gathers.  ``extract`` picks the hit-list
+    queries against a 3-tile leaf window with pure elementwise compares
+    over static slices — zero gathers.  ``extract`` picks the hit-list
     strategy: ``"bitpeel"`` (bit-packed mask, lowest-set-bit peeling on
     W=3TL/32 int32 sublanes + one flat prim gather — fastest),
     ``"peel"`` (composite-key argmin over the raw window), ``"topk"``,
@@ -653,29 +631,31 @@ def query_overlaps_sorted(bvh: LBvh, q_lo: jax.Array, q_hi: jax.Array,
     budget — the standard overflow contract).
 
     ``cells`` (8, 4 or 2) bounds the entries per decomposed query.  The
-    decomposed join is ENTRY-bound, not compare-bound (~13 ns/entry at
-    1M — docs/design.md), so fewer entries is a direct win: for
+    decomposed join is ENTRY-bound, not compare-bound (chosen before the move
+    to the GPU; not re-measured on the H100), so fewer entries is a direct win:
+    for
     ``cells=4`` each query instead uses the smallest aligned-cell level
     at which at most TWO axes straddle a cell boundary (level =
     ``max(ext_level, min_d bitlen(lo_d ^ hi_d))``), so 4 covering cells
     suffice by construction; ``cells=2`` lifts to the median, leaving
     at most one straddling axis.  Queries forced to a coarser level get
     a wider morton interval and may fall out of band (flagged, caller
-    falls back) — the measured in-band tradeoff lives in BENCHMARKS.md.
+    falls back) — run_all.py prints the in-band fraction beside each
+    decomposed row.
 
-    ``uniform_extent`` (round 4) is the broad-phase fast path: when every
-    query box is ``center +- r`` for one shared ``r`` (point-vs-mesh
-    contact, cloth vertex self-contact — the dominant consumers), pass
-    the CENTERS as ``q_lo`` (``q_hi`` is ignored) and ``r`` here (scalar
-    or per-axis).  Only the 3 center columns ride the entry sort (the
-    sort is the decomposed join's largest cost and is linear in operand
-    count: 9-op 30.3 ms / 5-op ~14 ms at 4M entries —
-    benchmarks/probe_r4_bvh3.py); the join reconstructs ``lo/hi =
-    c -+ r`` in f32, bit-identical to the caller's own ``p - r``/
-    ``p + r``, so exactness is unchanged.
+    ``uniform_extent`` is the broad-phase fast path: when every query box is
+    ``center +- r`` for one shared ``r`` (point-vs-mesh contact, cloth vertex
+    self-contact — the dominant consumers), pass the CENTERS as ``q_lo``
+    (``q_hi`` is ignored) and ``r`` here (scalar or per-axis).  Only the 3
+    center columns ride the entry sort (the sort is the decomposed join's
+    largest cost and is linear in operand count, chosen before the move to the
+    GPU; not re-measured on the H100); the join reconstructs ``lo/hi = c -+ r``
+    in f32, bit-identical to the caller's own ``p - r``/ ``p + r``, so
+    exactness is unchanged.
 
     Reference analog: ``container/Bvh.hpp`` ``iter_neighbors`` (:662-733);
-    the banded join is the TPU-first formulation of the same broad phase.
+    the banded join is a gather-free formulation of the same broad
+    phase.
     """
     n = bvh.num_leaves
     nq = q_lo.shape[0]
@@ -709,13 +689,11 @@ def query_overlaps_sorted(bvh: LBvh, q_lo: jax.Array, q_hi: jax.Array,
             raise ValueError("decompose packs qid into 26 bits of one "
                              "sort operand; split batches beyond 2^26")
         R = cells
-        # Column-form generation (round 4): every array below is [nq]
-        # or [R, nq] — nq minor, lane-aligned.  The previous
-        # [nq, 3]/[nq, R, 3] forms lane-pad their 3/4-wide minor dims
-        # to 128 on TPU; the gen stage measured 7.2 ms of a 44 ms
-        # 1M query (probe_r4_bvh6.py), the same pathology the join
-        # operands hit in round 3.  Entries flatten R-MAJOR (entry
-        # order is irrelevant pre-sort).
+        # Column-form generation: every array below is [nq] or [R, nq] — nq
+        # minor.  [nq, 3]/[nq, R, 3] forms pad their 3/4-wide minor dims in the
+        # device layout (chosen before the move to the GPU; not re-measured on
+        # the H100). Entries flatten R-MAJOR (entry order is irrelevant
+        # pre-sort).
         from ..math.bits import expand_bits_3d
 
         def quant_d(x, d):
@@ -786,16 +764,14 @@ def query_overlaps_sorted(bvh: LBvh, q_lo: jax.Array, q_hi: jax.Array,
                              jnp.int32(2 ** 31 - 1)).reshape(-1)
         vflat = valid.reshape(-1)
         qid0 = jnp.tile(jnp.arange(nq, dtype=jnp.int32), R)
-        # pack (qid, k, valid) into ONE sort operand: the entry sort is
-        # the decomposed join's single largest cost and is LINEAR in
-        # operand count (probe_r4_bvh3.py: 9-op stable 30.3 ms, 8-op
-        # unstable 22.8, 5-op ~14 at 4M entries).  m_hi leaves the sort
-        # (and the generation) entirely — it is reconstructed post-sort
-        # as m_lo + valid * 2^{3k} - 1 (invalid entries keep their
-        # empty anchored interval).  Unstable is sound here: every
-        # entry's result is independent and consumers combine by
-        # qid-keyed segment ops, so equal-key permutation cannot change
-        # answers.
+        # pack (qid, k, valid) into ONE sort operand: the entry sort is the
+        # decomposed join's single largest cost and is LINEAR in operand count
+        # (chosen before the move to the GPU; not re-measured on the H100).
+        # m_hi leaves the sort (and the generation) entirely — it is
+        # reconstructed post-sort as m_lo + valid * 2^{3k} - 1 (invalid entries
+        # keep their empty anchored interval).  Unstable is sound here: every
+        # entry's result is independent and consumers combine by qid-keyed
+        # segment ops, so equal-key permutation cannot change answers.
         qidk = ((qid0 << 5) | (jnp.tile(k, R) << 1)
                 | vflat.astype(jnp.int32))
         nq = nq * R
@@ -820,13 +796,11 @@ def query_overlaps_sorted(bvh: LBvh, q_lo: jax.Array, q_hi: jax.Array,
     while ntiles % G:
         G -= 1
 
-    # sort entries by interval start (wide sort: no gathers — a 3-op
-    # sort + post-gather of the 6 box columns measured 10x worse; 32-B
-    # row gathers run 6.3 GB/s, probe_r4_bvh3.py).  Per-dimension 1-D
-    # columns throughout (NO [.., dim] stacks): a dim-minor array in
-    # the window gather / scan operands lane-pads 3 -> 128 on TPU —
-    # the compiled HLO showed f32[.,3,TL,3] gather outputs plus
-    # relayout copies, ~40x the logical HBM traffic
+    # sort entries by interval start (wide sort: no gathers — a 3-op sort +
+    # post-gather of the 6 box columns was slower).  Per-dimension 1-D columns
+    # throughout (NO [.., dim] stacks): a dim-minor array in the window gather
+    # / scan operands pads 3 -> 128 in the device layout, with relayout copies
+    # (chosen before the move to the GPU; not re-measured on the H100)
     if uniform_extent is not None:
         qcols_in = [centers[:, d] for d in range(dim)]
         qfills = [big] * dim
@@ -883,25 +857,25 @@ def query_overlaps_sorted(bvh: LBvh, q_lo: jax.Array, q_hi: jax.Array,
     # interval start.  Round 2 anchored windows positionally
     # ([(t-1)TL, (t+2)TL) around the tile's rank), which silently
     # assumed query rank tracks leaf rank — morton-code dilation shift
-    # and decomposed-entry multiplicity both break that (measured:
-    # in-band 0.002 at 1M).  sm_lo is sorted, so the tile's min
+    # and decomposed-entry multiplicity both break that (almost no
+    # query stayed in band at 1M).  sm_lo is sorted, so the tile's min
     # interval start is its FIRST entry — ONE rank lookup per TILE
-    # ([ntiles] searchsorted, trivial), not per entry: the per-entry
-    # _rank_sorted/_rank_any front measured 74+84 ms of a 261 ms
-    # decomposed counts query at 1M (benchmarks/probe_bvh_decomp.py).
+    # ([ntiles] searchsorted, trivial), not per entry: a per-entry
+    # _rank_sorted/_rank_any front was most of a decomposed counts query
+    # (chosen before the move to the GPU; not re-measured on the H100).
     TL = -(-n // ntiles)
-    # window base = the tile's own min interval start, floored to a
-    # TL-block boundary (the gather then moves whole [TL,...] blocks —
-    # element-row gathers of the same bytes measured 30x slower)
+    # window base = the tile's own min interval start, floored to a TL-block
+    # boundary (the gather then moves whole [TL,...] blocks; element-row
+    # gathers of the same bytes were far slower, chosen before the move to the
+    # GPU; not re-measured on the H100)
     nlt = -(-n // TL) + 3
     # per-tile min (decomposed entries are only 8-blockwise sorted;
     # for the globally sorted case the min IS the first entry)
     tile_min = jnp.min(sm_lo.reshape(ntiles, T), axis=1)
-    # block-boundary rank (round 4): w0 is only needed at TL-block
+    # block-boundary rank: w0 is only needed at TL-block
     # granularity, so rank tile_min against the ceil(n/TL) block-LEADING
     # codes with one fused compare+sum instead of searchsorted into all
-    # n codes (whose ~20 dependent gather rounds were ~1/3 of an 8.4 ms
-    # front stage at 1M — probe_r4_bvh6.py).  With left-rank r in codes,
+    # n codes (~20 dependent gather rounds).  With left-rank r in codes,
     # #{j : codes[j*TL] < v} = ceil(r/TL), so blk = that - 1 equals
     # r//TL except when r lands exactly on a block boundary, where the
     # window shifts one block early — coverage the edge-code certificate
@@ -937,18 +911,17 @@ def query_overlaps_sorted(bvh: LBvh, q_lo: jax.Array, q_hi: jax.Array,
     # all scan operands (windows AND q-side) are materialized through
     # one optimization_barrier below, before the scan — left fused, XLA
     # re-materializes producers inside the loop body every step
-    # (measured: counts-only 6 -> 324 ms re-gathering windows; q-side
-    # sort epilogue fusion another ~43 ms at 1M decomposed)
+    # (chosen before the move to the GPU; not re-measured on the H100)
     wins = ([window(leaf_lo[:, d], big) for d in range(dim)]
             + [window(leaf_hi[:, d], -big) for d in range(dim)]
             + [window(leaf_prim, jnp.int32(-1))])
     if decompose:
-        # leaf morton codes ride the window as TWO f32 halves (15 bits
-        # each — f32-exact): hits are clamped to the entry's own cell by
-        # EXACT code-interval membership [m_lo, m_hi], replacing the
-        # per-entry [s, e) lane clamp (whose rank lookups dominated the
-        # query, probe_bvh_decomp.py).  int32 compares in the join break
-        # its bool fusion (324 vs 31 ms measured) — hence the f32 pair.
+        # leaf morton codes ride the window as TWO f32 halves (15 bits each —
+        # f32-exact): hits are clamped to the entry's own cell by EXACT
+        # code-interval membership [m_lo, m_hi], replacing the per-entry [s, e)
+        # lane clamp (whose rank lookups dominated the query).  int32 compares
+        # in the join broke its bool fusion — hence the f32 pair (chosen before
+        # the move to the GPU; not re-measured on the H100).
         wc = window(bvh.codes, jnp.int32(2 ** 31 - 1))
         wins += [(wc >> 15).astype(leaf_lo.dtype),
                  (wc & 0x7FFF).astype(leaf_lo.dtype)]
@@ -1006,7 +979,7 @@ def query_overlaps_sorted(bvh: LBvh, q_lo: jax.Array, q_hi: jax.Array,
                     [ov, jnp.zeros((G, WL - 3 * TL, T), bool)], axis=1)
             W = WL // 32
             # sum of distinct powers of two == OR (int32 wrap is exact
-            # two's-complement; jnp.sum keeps int32 exactness on TPU)
+            # two's-complement; jnp.sum keeps int32 exactness)
             shifts = jax.lax.shift_left(
                 jnp.int32(1), jnp.arange(32, dtype=jnp.int32))
             words = jnp.stack(
@@ -1026,25 +999,21 @@ def query_overlaps_sorted(bvh: LBvh, q_lo: jax.Array, q_hi: jax.Array,
                 # comp is unique across nonzero words (disjoint bases),
                 # so exactly the selected word clears its lowest bit
                 words = words ^ jnp.where(comp == m[:, None, :], lb, 0)
-            # stack hits [G, max_hits, T]: T is the 128-lane minor
-            # dim.  A [.., T, max_hits] layout lane-pads max_hits -> 128
-            # in the scan's stacked output (8x HBM write amplification
-            # at mh=16; measured as the dominant cost of extraction)
+            # stack hits [G, max_hits, T]: T is the 128-multiple minor
+            # dim.  A [.., T, max_hits] layout pads max_hits -> 128 in
+            # the scan's stacked output, which dominated extraction
+            # (chosen before the move to the GPU; not re-measured on the H100)
             hits = jnp.stack(lanes_out, axis=1)    # [G, max_hits, T]
             return carry, (hits, cnt)
         if decompose and extract in ("none", "peel"):
-            # Transposed [G, 3TL, T] orientation (round 4): the
-            # decomposed window is NARROW (3TL = 3n/ntiles, e.g. 192
-            # lanes at cells=4/T=128) and as the MINOR dim it fills
-            # only 1.5 of a 128-lane register row — the G/T sweep in
-            # probe_r4_bvh3.py measured the join ~4x below the VPU
-            # roofline while the plain path's 768-lane windows run AT
-            # roofline.  Putting T (a 128 multiple) minor and the
-            # window on sublanes restores full-lane vectorization; the
-            # margin-min join is orientation-symmetric so only the
-            # broadcast axes change (bitpeel's mask already ran this
-            # way — its pathology was the bit-pack padding, not the
-            # orientation).
+            # Transposed [G, 3TL, T] orientation: the decomposed window is
+            # NARROW (3TL = 3n/ntiles, e.g. 192 at cells=4/T=128) and as the
+            # MINOR dim it vectorized poorly (chosen before the move to the
+            # GPU; not re-measured on the H100).  Putting T (a 128 multiple)
+            # minor restores full vectorization; the margin-min join is
+            # orientation-symmetric so only the broadcast axes change
+            # (bitpeel's mask already ran this way — its pathology was the
+            # bit-pack padding, not the orientation).
             mg = jnp.broadcast_to(
                 wp.astype(wl[0].dtype)[:, :, None], (G, 3 * TL, T))
             mg = jnp.minimum(
@@ -1082,23 +1051,21 @@ def query_overlaps_sorted(bvh: LBvh, q_lo: jax.Array, q_hi: jax.Array,
                 comp = jnp.where(comp == m[:, None, :], big_c, comp)
             hits = jnp.stack(cols_out, axis=1)     # [G, mh, T]
             return carry, (hits, cnt)
-        # [G, T, 3TL] overlap mask, built per-dimension: a fused
-        # jnp.all(..., -1) materializes [G,T,3TL,dim] whose dim-minor
-        # lane-pads 128x on TPU (measured 40x slowdown at 1M queries)
-        # margin-min join: every condition becomes an f32 MARGIN
-        # (>= 0 iff satisfied) and the conditions reduce by
-        # jnp.minimum — full-rate VPU f32 ops with ONE final pred,
-        # instead of 8 compares + 7 pred-ands whose conversions ran
-        # the scan-body fusion at ~3x the f32 roofline (compiled-HLO
-        # estimated_cycles).  Margins: prim validity = wp itself
-        # (f32-exact, ids < 2^24); cell membership = the sign-exact
-        # fma pair-compare values (when the 15-bit high halves
-        # differ, |dh*65536| >= 2|dl|, and f32 rounding never flips
-        # the sign of a +-2^31-bounded sum); box overlap = the 6
-        # coordinate differences.  Window fills (+-3.4e38) make the
-        # box margins -inf on padded lanes — no NaN combination is
-        # reachable (fills pair only with finite or opposite-sign
-        # values).
+        # [G, T, 3TL] overlap mask, built per-dimension: a fused jnp.all(...,
+        # -1) materializes [G,T,3TL,dim] whose dim-minor pads 128x in the
+        # device layout (chosen before the move to the GPU; not re-measured on
+        # the H100) margin-min join: every condition becomes an f32 MARGIN (>=
+        # 0 iff satisfied) and the conditions reduce by jnp.minimum — full-rate
+        # f32 ops with ONE final pred, instead of 8 compares + 7 pred-ands
+        # whose conversions slowed the scan-body fusion (chosen before the move
+        # to the GPU; not re-measured on the H100).  Margins: prim validity =
+        # wp itself (f32-exact, ids < 2^24); cell membership = the sign-exact
+        # fma pair-compare values (when the 15-bit high halves differ,
+        # |dh*65536| >= 2|dl|, and f32 rounding never flips the sign of a
+        # +-2^31-bounded sum); box overlap = the 6 coordinate differences.
+        # Window fills (+-3.4e38) make the box margins -inf on padded lanes —
+        # no NaN combination is reachable (fills pair only with finite or
+        # opposite-sign values).
         mg = jnp.broadcast_to(
             wp.astype(wl[0].dtype)[:, None, :], (G, T, 3 * TL))
         if decompose:
@@ -1116,7 +1083,7 @@ def query_overlaps_sorted(bvh: LBvh, q_lo: jax.Array, q_hi: jax.Array,
         lane_ids = jnp.arange(3 * TL, dtype=jnp.int32)
         if extract == "none":
             # no hit output: a constant [.., max_hits] ys still costs
-            # its (lane-padded) HBM writes every step
+            # its (padded) device-memory writes every step
             return carry, (jnp.zeros((ov.shape[0], 1, ov.shape[1]),
                                      jnp.int32), cnt)
         if extract == "peel":
@@ -1171,15 +1138,13 @@ def query_overlaps_sorted(bvh: LBvh, q_lo: jax.Array, q_hi: jax.Array,
         hits = jnp.where(lanes < 3 * TL, hit_prim, -1)
         return carry, (hits.swapaxes(1, 2), cnt)
 
-    # operand order MUST match per_group's unpack.  The loop is a
-    # fori_loop with explicit dynamic slices, NOT lax.scan: scan bundles
-    # its xs into the while-loop carried tuple, and XLA assigned the
-    # window operands a transposed loop layout ({1,0,2} in the compiled
-    # HLO) — a whole-array relayout copy before the loop that dwarfed
-    # the join itself (the identical body measured 11 ms with operands
-    # as program arguments vs ~54 ms under scan; no body-level rewrite
-    # moved it).  Slicing from the barriered arrays leaves them in
-    # their natural layout.
+    # operand order MUST match per_group's unpack.  The loop is a fori_loop
+    # with explicit dynamic slices, NOT lax.scan: scan bundles its xs into the
+    # while-loop carried tuple, and XLA assigned the window operands a
+    # transposed loop layout ({1,0,2} in the compiled HLO) — a whole-array
+    # relayout copy before the loop that dwarfed the join itself (chosen before
+    # the move to the GPU; not re-measured on the H100).  Slicing from the
+    # barriered arrays leaves them in their natural layout.
     qcols = sq_lo_d + sq_hi_d
     if decompose:
         qcols = qcols + [ah, al, bh, bl]
@@ -1228,19 +1193,17 @@ def query_overlaps_exact(bvh: LBvh, q_lo: jax.Array, q_hi: jax.Array,
                          residue_budget: Optional[int] = None,
                          uniform_extent=None):
     """Exact per-query overlap answers with static shapes: decomposed
-    banded join + bounded escape-walk residue (round 4).
+    banded join + bounded escape-walk residue.
 
-    The banded join certifies exactness per query; this driver closes
-    the contract framework-side instead of leaving the residue to the
-    caller: out-of-band queries (typically a few percent — measured
-    in-band lives in BENCHMARKS.md) are compacted into a STATIC
-    ``residue_budget`` buffer and answered by the reference-shaped
-    escape walk (:func:`query_overlaps`), which is latency-bound and
-    only economical at exactly this bounded-residue scale — its role
-    after round 4 is residue engine + test oracle, not a query path
-    (docs/design.md).  If more than ``residue_budget`` queries fall out
-    of band, ``overflow`` is returned True and the caller re-traces
-    with a larger budget — the standard contract.
+    The banded join certifies exactness per query; this driver closes the
+    contract framework-side instead of leaving the residue to the caller:
+    out-of-band queries (typically a few percent) are compacted into a STATIC
+    ``residue_budget`` buffer and answered by the reference-shaped escape walk
+    (:func:`query_overlaps`), which is latency-bound and only economical at
+    exactly this bounded-residue scale — residue engine + test oracle, not a
+    query path.  If more than ``residue_budget`` queries fall out of band,
+    ``overflow`` is returned True and the caller re-traces with a larger budget
+    — the standard contract.
 
     Returns ``(qid_rows, hits_rows, counts, overflow)``:
     ``counts [nq]`` is the EXACT per-query overlap count for every
@@ -1252,8 +1215,7 @@ def query_overlaps_exact(bvh: LBvh, q_lo: jax.Array, q_hi: jax.Array,
     list (its count stays exact).
 
     Reference analog: ``Bvh.hpp`` ``iter_neighbors`` — the guaranteed-
-    exact query surface, here with the TPU-first banded join as the
-    fast path.
+    exact query surface, here with the banded join as the fast path.
     """
     nq0 = q_lo.shape[0]
     dim = q_lo.shape[-1]
@@ -1309,9 +1271,9 @@ def query_nearest_sorted(bvh: LBvh, points: jax.Array,
     """High-throughput nearest-point query for point primitives:
     sorted banded scan with an a-posteriori exactness certificate.
 
-    Same TPU-first shape as :func:`query_overlaps_sorted`: queries are
+    Same shape as :func:`query_overlaps_sorted`: queries are
     morton-sorted onto the leaf diagonal, each tile computes exact
-    squared distances to a 3-tile window of leaf points (pure VPU
+    squared distances to a 3-tile window of leaf points (pure
     broadcasting, zero per-query traversal), takes the window argmin,
     then certifies it: any primitive closer than the found ``rb``
     has a morton code in ``[m(q - rb), m(q + rb)]`` (componentwise
@@ -1324,8 +1286,9 @@ def query_nearest_sorted(bvh: LBvh, points: jax.Array,
     in sorted-query order.
 
     Reference analog: ``container/Bvh.hpp`` ``find_nearest`` (:551-621);
-    the traversal is replaced by the banded formulation, which measures
-    ~3 orders of magnitude faster on uniform point sets (BENCHMARKS.md).
+    the traversal is replaced by the banded formulation, which was
+    orders of magnitude faster on uniform point sets (chosen before the
+    move to the GPU; not re-measured on the H100).
     """
     n = bvh.num_leaves
     nq = points.shape[0]
@@ -1494,7 +1457,7 @@ class BvttFront:
     retained set of candidate (query, primitive) pairs, rebuilt from BVH
     overlap queries and re-validated cheaply between rebuilds.
 
-    TPU form: padded pair arrays + count.  ``refresh`` re-tests the cached
+    Form: padded pair arrays + count.  ``refresh`` re-tests the cached
     pairs against current boxes (pure gathers, no traversal); ``rebuild``
     runs the full traversal.  This mirrors the reference's front idiom of
     amortizing traversals across frames.

@@ -2,7 +2,7 @@
 (reference ``container/Bvs.hpp``: a sorted flat alternative to the BVH for
 broad-phase when rebuild cost dominates).
 
-TPU form: primitives sorted by their min coordinate along a chosen axis; a
+Form: primitives sorted by their min coordinate along a chosen axis; a
 query interval locates its candidate range by two binary searches, then
 tests a **bounded window** of candidates (static fanout, like
 IndexBuckets).  Build = one sort; no tree, no ropes — the cheapest

@@ -1,4 +1,4 @@
-"""``Field`` — the TPU-native ``zs::Vector`` (container/Vector.hpp).
+"""``Field`` — the ``zs::Vector`` (container/Vector.hpp).
 
 Design notes (vs the reference):
 

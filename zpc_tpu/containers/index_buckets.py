@@ -5,7 +5,7 @@ Reference: ``container/IndexBuckets.hpp:12-66`` — per-cell counts + offsets
 ``bucketNo(coord)``; and ``container/SpatialHash.hpp`` (uniform-cell
 variant).
 
-TPU re-design: the atomic count/offset build becomes **sort + run-length
+Re-design: the atomic count/offset build becomes **sort + run-length
 offsets** — particle ids stable-sorted by packed cell key; the sorted-unique
 cell table doubles as the hash table; per-cell ranges are recovered with
 ``searchsorted`` over the sorted keys.  Neighborhood queries use a **fixed

@@ -1,4 +1,4 @@
-"""``OrderedMap`` — the TPU-native ``RBTreeMap`` (container/RBTreeMap.hpp)
+"""``OrderedMap`` — the ``RBTreeMap`` (container/RBTreeMap.hpp)
 plus ``RingBuffer`` (container/RingBuffer.hpp).
 
 A red-black tree gives per-thread ordered insert/erase/lookup on CUDA; under

@@ -1,10 +1,10 @@
-"""``StructuredField`` — the TPU-native ``zs::TileVector``
+"""``StructuredField`` — the SoA ``zs::TileVector``
 (container/TileVector.hpp).
 
 The reference TileVector is an AoSoA container: runtime-declared named
 multi-channel properties, stored in lane-width tiles so CUDA threads get
-coalesced loads.  On TPU, XLA owns physical layout and tiles arrays for the
-VPU itself, so AoSoA is counterproductive (SURVEY §7): a StructuredField is a
+coalesced loads.  Under XLA the compiler owns physical layout and tiles arrays
+itself, so AoSoA is counterproductive (SURVEY §7): a StructuredField is a
 **dict of SoA arrays**, one per property, each ``[capacity, *prop_shape]``.
 
 API parity:

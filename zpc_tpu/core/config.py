@@ -1,16 +1,16 @@
 """Core property/type vocabulary.
 
-TPU-native re-design of the reference's property system
+Re-design of the reference's property system
 (``include/zensim/types/Property.h``, ``types/SmallVector.hpp:109``):
 
-* ``memsrc_e {host, device, um}``  ->  :class:`MemSrc` — on TPU this maps to
+* ``memsrc_e {host, device, um}``  ->  :class:`MemSrc` — this maps to
   host (numpy / committed-to-CPU) vs device (default jax device) placement;
-  unified memory has no TPU analog and aliases device.
+  unified memory aliases device.
 * ``execspace_e``                  ->  executor backends (see
   :mod:`zpc_tpu.core.executor`).
 * ``layout_e {aos, soa, aosoa}``   ->  :class:`Layout` — kept for API parity,
-  but the TPU build always stores SoA: XLA owns physical layout and tiles for
-  the VPU/MXU, so AoSoA (the reference TileVector's raison d'etre) would only
+  but this build always stores SoA: XLA owns physical layout and tiling, so
+  AoSoA (the reference TileVector's raison d'etre) would only
   obstruct the compiler.
 * ``PropertyTag{name, numChannels}`` -> :class:`PropertyTag` (same role:
   declaring named multi-channel properties of a structured field).
@@ -33,7 +33,7 @@ __all__ = [
     "index_dtype",
 ]
 
-# TPU-native defaults: fp32 compute (fp64 unavailable on TPU), int32 indices.
+# defaults: fp32 compute, int32 indices.
 default_float = jnp.float32
 default_int = jnp.int32
 index_dtype = jnp.int32
@@ -44,13 +44,13 @@ class MemSrc(enum.Enum):
 
     host = "host"
     device = "device"
-    um = "um"  # alias of device on TPU
+    um = "um"  # alias of device
 
 
 class Layout(enum.Enum):
     """Storage layout (reference ``layout_e``, types/Property.h:104).
 
-    Retained for API parity only; all TPU containers are physically SoA.
+    Retained for API parity only; all containers are physically SoA.
     """
 
     aos = "aos"

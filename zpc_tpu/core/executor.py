@@ -1,4 +1,4 @@
-"""Execution policies, TPU-native.
+"""Execution policies on XLA.
 
 The reference's central abstraction is the execution policy
 (``include/zensim/execution/ExecutionPolicy.hpp:99-127`` CRTP interface;
@@ -7,13 +7,13 @@ is launched: ``policy(range, functor)`` plus pattern free-functions
 (``for_each/reduce/scan/sort``).  Policies carry fluent settings:
 ``.sync(bool)``, ``.profile(bool)``, ``.device(i)``, ``.stream(i)``.
 
-TPU re-design: a *kernel launch* is a traced, XLA-compiled pure function, so a
+Re-design: a *kernel launch* is a traced, XLA-compiled pure function, so a
 policy becomes an :class:`Executor` value object that decides
 
 * **backend** — ``jit`` (compiled; the cuda/omp analog) or ``interp``
   (eager, op-by-op; the ``seq_exec`` serial-reference analog, used as the test
   oracle), mirroring reference layer 3's backend dispatch;
-* **checkify** bounds checking — the TPU analog of the reference's
+* **checkify** bounds checking — the analog of the reference's
   ``ZS_ENABLE_OFB_ACCESS_CHECK`` out-of-bounds instrumentation
   (``container/Vector.hpp:472-504``);
 * **profiling** — labeled wall-clock timing with call-site attribution,
@@ -25,8 +25,8 @@ policy becomes an :class:`Executor` value object that decides
   XLA's async scheduler owns overlap).
 
 ``.sync(bool)`` maps to ``block_until_ready`` on results (JAX dispatch is
-async like CUDA streams); ``.stream(i)``/``.shmem(b)`` have no TPU analog and
-are intentionally absent.
+async like CUDA streams); ``.stream(i)``/``.shmem(b)`` have no XLA analog
+and are intentionally absent.
 """
 
 from __future__ import annotations
@@ -170,14 +170,14 @@ def seq_exec() -> Executor:
     return Executor(backend="interp", check_flag=True)
 
 
-def tpu_exec() -> Executor:
-    """Compiled policy (``cuda_exec()``/``omp_exec()`` analog): jit on the
-    default backend (TPU when present, else CPU)."""
+def jit_exec() -> Executor:
+    """Compiled policy (``cuda_exec()``/``omp_exec()`` analog): jit on JAX's
+    default backend (the GPU when present, else the CPU)."""
     return Executor(backend="jit")
 
 
-# alias: on machines without TPU this is still the compiled path
-jit_exec = tpu_exec
+# the original name of jit_exec, kept as an API alias
+tpu_exec = jit_exec
 
 
 def par_exec(*launches):

@@ -1,4 +1,4 @@
-"""``AdaptiveGrid`` — multi-level VDB-like sparse tree, TPU-native.
+"""``AdaptiveGrid`` — multi-level VDB-like sparse tree.
 
 Reference: ``geometry/AdaptiveGrid.hpp:9-19`` — per-level ``bht`` +
 ``TileVector`` node pools with OpenVDB's 5-4-3-style branching
@@ -6,7 +6,7 @@ Reference: ``geometry/AdaptiveGrid.hpp:9-19`` — per-level ``bht`` +
 (:1035-1090), and a caching accessor (:1090-1130); conversion to/from
 OpenVDB (AdaptiveGrid_Conversion.cpp).
 
-TPU re-design: static level count, each level a sorted-key
+Re-design: static level count, each level a sorted-key
 :class:`BlockTable` + dense node payload ``[cap_l, bs_l^d]`` + boolean child
 mask.  ``probe`` descends all levels **unrolled and branch-free**: every
 level's lookup runs for every query lane, ``where`` selects the value from

@@ -1,11 +1,11 @@
-"""Tight-inclusion continuous collision detection, batched for TPU.
+"""Tight-inclusion continuous collision detection, batched.
 
 Reference: ``include/zensim/math/Rational.hpp:362-1265`` — the
 tight-inclusion CCD of Wang et al. (NumCCD dyadic rationals, Interval3
 bisection of the (t, u, v) parameter cube, 8-corner evaluation of the
 multilinear gap function with a floating-point inclusion filter).
 
-TPU redesign (not a translation):
+Redesign (not a translation):
 
 * **Dyadic int32 boxes.** The reference's ``NumCCD`` (k / 2^n over u64)
   becomes per-dimension ``(k, n)`` int32 pairs with n ≤ 23, so every box

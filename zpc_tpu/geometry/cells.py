@@ -6,7 +6,7 @@ Parity surface for the reference's ``geometry/Geometry.hpp:69-310``
 differences, their bbox-cut tests, and the exact-ish point/segment/ray
 predicates they rely on.
 
-TPU re-design: everything is **vectorized and branch-free** — batched
+Re-design: everything is **vectorized and branch-free** — batched
 ``[..., 3]`` inputs, compensated double-float predicates from
 :mod:`zpc_tpu.geometry.predicates` instead of fp64 Shewchuk, masks
 instead of early returns.  Return conventions match the reference

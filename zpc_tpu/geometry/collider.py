@@ -5,9 +5,9 @@ set with a ``collider_e {Sticky, Slip, Separate}`` type and projects grid
 velocities via ``resolveCollision(x, v)``; used by
 ``ApplyBoundaryConditionOnGridBlocks`` (simulation/grid/GridOp.hpp:14-38).
 
-TPU re-design: ``resolve`` is fully vectorized over node batches — one call
-projects every active grid node at once (fused VPU math + ``where`` selects
-instead of per-thread branches).
+Re-design: ``resolve`` is fully vectorized over node batches — one call
+projects every active grid node at once (fused elementwise math + ``where``
+selects instead of per-thread branches).
 """
 
 from __future__ import annotations

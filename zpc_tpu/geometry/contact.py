@@ -5,7 +5,7 @@ Parity surface for the reference's hand-derived IPC primitives
 distance gradients + Hessians; ``geometry/Friction.hpp``: tangent-basis
 relative-displacement friction with the C1 mollifier).
 
-TPU re-design: the reference expands ~4 kLoC of per-case closed forms;
+Re-design: the reference expands ~4 kLoC of per-case closed forms;
 here the region-aware closed forms come from **autodiff through the
 branch-free clamped projections** in :mod:`zpc_tpu.geometry.distance`
 (clamps give the correct one-sided derivatives a.e., matching the
@@ -13,7 +13,7 @@ reference's per-region formulas), batched over contact pairs.  Hessians
 are 12x12 per pair with SPD projection (eigenvalue clamping) as required
 by Newton-type solvers — the reference's ``make_pd`` step.
 
-Note for hot TPU paths: batched 12x12 ``eigh`` is VPU-heavy; inside
+Note for hot paths: batched 12x12 ``eigh`` is costly; inside
 time-critical solvers prefer the gradient-only (Jacobi/GD) flavors, or
 project on host between Newton iterations.
 """

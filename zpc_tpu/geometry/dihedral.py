@@ -14,7 +14,7 @@ lineage): signed dihedral angle of the hinge
 12-gradient and 12x12 Hessian, plus the discrete hinge bending energy
 consuming them.
 
-TPU re-design: the reference hand-expands the gradient (rusmas forms,
+Re-design: the reference hand-expands the gradient (rusmas forms,
 DihedralAngle.hpp:38-70) and the Hessian (Disney "Discrete Bending
 Forces and Their Jacobians", :82-180).  Here the angle is computed in
 an ``atan2`` form — smooth where the reference's ``acos`` + sign-flip

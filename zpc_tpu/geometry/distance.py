@@ -1,7 +1,7 @@
 """Distance queries & CCD (reference ``geometry/Distance.hpp:233-2450``,
 ``SpatialQuery.hpp``, ``Friction.hpp`` precursors; IPC-style primitives).
 
-TPU re-design: every query is **batched and branch-free** — the reference's
+Re-design: every query is **batched and branch-free** — the reference's
 per-case distance-type dispatch (point-point/point-edge/point-triangle
 regions) becomes clamped barycentric projections computed for all lanes with
 ``where`` selects.  Gradients come from autodiff (the reference hand-derives

@@ -5,12 +5,12 @@ getMaterialVelocity`` (geometry/LevelSetInterface.h:6-21) and
 ``AnalyticLevelSet`` Plane/Cuboid/Sphere/Cylinder/Torus
 (geometry/AnalyticLevelSet.h:7-173).
 
-TPU re-design: a level set is a frozen pytree dataclass with vectorized
+Re-design: a level set is a frozen pytree dataclass with vectorized
 ``sdf(x)`` / ``normal(x)`` / ``velocity(x)`` over ``[..., dim]`` point
-batches — one fused VPU evaluation for a whole grid of query points, instead
+batches — one fused evaluation for a whole grid of query points, instead
 of the reference's per-thread scalar calls.  Normals are computed
 analytically where cheap, else by forward-mode autodiff (``jax.grad`` on the
-sdf) — the TPU-native replacement for hand-derived gradient code.
+sdf) — in place of hand-derived gradient code.
 
 Composite/transformed level sets mirror the reference's ``LevelSet.h``
 composition utilities.

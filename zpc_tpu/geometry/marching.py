@@ -2,7 +2,7 @@
 
 Reference capability: surface reconstruction / mesh export goes through
 OpenVDB tools (``geometry/VdbLevelSet.h`` conversions + downstream zeno
-nodes).  TPU redesign: marching *tetrahedra* instead of marching cubes —
+nodes).  Redesign: marching *tetrahedra* instead of marching cubes —
 the 16-entry case table is derived programmatically at import (no
 ambiguous cases, no 256x16 baked table), and the whole pass is dense
 slicing + tiny-table gathers, which XLA handles well.  Output is a

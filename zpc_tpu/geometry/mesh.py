@@ -2,7 +2,7 @@
 node/element arrays; surface extraction + normals in ``Mesh.cpp``; remesh
 ``spray_points`` in ``geometry/remesh/Retile.hpp``).
 
-TPU build: a mesh is a pytree of (vertices, elements); surface ops are
+Build: a mesh is a pytree of (vertices, elements); surface ops are
 vectorized; the boundary-face extraction uses the sort-based face-matching
 idiom (faces appearing once are boundary) instead of hash sets.
 """

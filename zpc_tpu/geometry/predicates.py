@@ -1,7 +1,7 @@
 """Geometric orientation predicates (reference ``geometry/Predicates.hpp``
 — Shewchuk's exact ``orient2d/3d``, ``incircle``, ``insphere``).
 
-TPU has no fp64 (SURVEY §7 hard-part 6), so exact predicates are built on
+Without fp64 (SURVEY §7 hard-part 6), exact predicates are built on
 **two-float (double-float) compensated arithmetic**: each value is an
 unevaluated sum hi+lo of two fp32; two_sum/two_prod give error-free
 transforms, pushing effective precision to ~48 bits — enough to make the

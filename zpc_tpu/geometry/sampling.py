@@ -4,7 +4,7 @@ Reference: ``geometry/PoissonDisk.hpp:19-129`` (Poisson-disk sampler used by
 Scene init; the reference loads a pre-baked 1000k-point pattern from disk) and
 the level-set sample paths in ``simulation/init/Scene.cpp:36-91``.
 
-TPU build: host-side NumPy (seeding is one-time init):
+Build: host-side NumPy (seeding is one-time init):
 
 * :func:`sample_lattice` — jittered ppc-per-cell lattice restricted to a
   level set / box (the common MPM seeding; deterministic given a seed);

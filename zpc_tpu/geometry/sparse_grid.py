@@ -1,4 +1,4 @@
-"""``SparseGrid`` — VDB-style one-level sparse block grid, TPU-native.
+"""``SparseGrid`` — VDB-style one-level sparse block grid.
 
 Reference: ``geometry/SparseGrid.hpp:16-43`` — a ``bht`` table of block
 origins + a ``TileVector`` of block payloads, a world<->index affine
@@ -6,7 +6,7 @@ origins + a ``TileVector`` of block payloads, a world<->index affine
 staggered sampling (:418-498); also the legacy MPM ``Grids``
 (geometry/Structure.hpp:34-155).
 
-TPU re-design:
+Re-design:
 
 * block table  -> :class:`~zpc_tpu.containers.block_table.BlockTable`
   (sorted keys + searchsorted; built by sort-compaction, not atomic insert)
@@ -182,9 +182,9 @@ class SparseGrid:
                             dilation: int = 0):
         """Like :meth:`activate` but also returns each candidate's slot in
         the final (dilated) table — derived from the build's own sort
-        instead of a per-candidate binary search (a 262k-lane searchsorted
-        measured ~25 ms on v5e; the remap below queries only ``capacity``
-        keys)."""
+        instead of a per-candidate binary search (a chain of dependent
+        gathers; the remap below queries only ``capacity`` keys —
+        chosen before the move to the GPU; not re-measured on the H100)."""
         cap = self.block_capacity
         if isinstance(self.table, WideBlockTable):
             build = lambda c, k, v: build_wide_block_table(c, k, valid=v)

@@ -6,7 +6,7 @@ fill ``flood_fill_levelset`` with its ReserveForNeighbor / MarkInteriorTag /
 ComputeTaggedSDF functor passes (``geometry/LevelSetUtils.hpp:10-162``);
 mesh/points -> SDF conversion lives in the reference's VDB tool layer.
 
-TPU re-design: a SparseLevelSet *is* a SparseGrid with an ``sdf`` property
+Re-design: a SparseLevelSet *is* a SparseGrid with an ``sdf`` property
 (+ optional ``vel``) and a background distance — all sampling machinery is
 inherited.  The flood fill becomes **jump-flood sweeps** over the active
 narrow band: each pass takes the min over face neighbors + dx (vectorized

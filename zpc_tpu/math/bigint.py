@@ -2,7 +2,8 @@
 
 Reference: ``include/zensim/math/Rational.hpp:86-360`` — an exact fraction
 over int64 with Euclid-GCD normalization, used by the robust geometry /
-CCD stack.  TPU int64 is emulated and slow, and the reference's own
+CCD stack.  This module needs no int64 (x64 mode is process-wide in
+JAX), and the reference's own
 comment says "128 would be better"; here we go wider by construction:
 
 * ``BigInt`` — sign-magnitude integers with ``L`` limbs of 12 bits each

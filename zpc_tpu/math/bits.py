@@ -3,7 +3,7 @@
 Reference: ``math/bit/Bits.h`` (morton interleave, ``count_leading_zeros``,
 ``next_2pow``), consumed by the LBVH builder (container/Bvh.hpp:184,346).
 
-TPU note: int32 throughout (TPU-native); 30-bit 3-D morton (10 bits/axis)
+Note: int32 throughout; 30-bit 3-D morton (10 bits/axis)
 and 32-bit 2-D morton (16 bits/axis).  ``clz`` is computed arithmetically
 (no hardware intrinsic surface in XLA: use floor(log2)).
 """

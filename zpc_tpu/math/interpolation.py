@@ -5,11 +5,11 @@ cubic B-spline weights and derivative weights) and the ``GridArena`` stencil
 object (``:271-289``) used by every transfer kernel
 (``simulation/Utils.hpp:32-184``).
 
-TPU re-design: weights are computed **per axis as small dense vectors**
-(``[..., S]`` for stencil size S) and combined by outer products, so a
-particle's full 3-D stencil is ``wx ⊗ wy ⊗ wz`` — this is exactly the shape
-the MXU-friendly P2G/G2P kernels consume (segment/einsum formulations instead
-of atomic scatter).
+Re-design: weights are computed **per axis as small dense vectors** (``[...,
+S]`` for stencil size S) and combined by outer products, so a particle's full
+3-D stencil is ``wx ⊗ wy ⊗ wz`` — this is exactly the shape the matmul-friendly
+P2G/G2P kernels consume (segment/einsum formulations instead of atomic
+scatter).
 """
 
 from __future__ import annotations

@@ -5,7 +5,7 @@ Reference: ``math/RandomNumber.hpp`` (per-thread xorshift/LCG generators),
 ``math/Hash.hpp`` (``hash_combine``, invertible integer hash/unhash,
 ``universal_hash_base`` in py_interop/HashUtils.hpp:7-15).
 
-TPU build: stateless counter-based randomness is the hardware-native model
+Build: stateless counter-based randomness is the hardware-native model
 — ``jax.random`` replaces per-thread generator state; this module adds the
 reference's distribution helpers and the integer-hash family (used for
 randomized algorithms like graph-coloring priorities and hash tables).

@@ -1,7 +1,7 @@
 """Exact rational arithmetic (reference ``math/Rational.hpp`` — used for
 robust geometric intersection tests).
 
-TPU build: a batched device-capable rational type over int64-range
+Build: a batched device-capable rational type over int64-range
 numerator/denominator pairs carried as **double-int32 limbs is unnecessary**
 — the predicates layer (``geometry/predicates``) covers the robustness use
 case with compensated floats.  This module provides the reference's

@@ -1,4 +1,4 @@
-"""Matrix-free iterative solvers (CG / CR / MinRes), TPU-native.
+"""Matrix-free iterative solvers (CG / CR / MinRes).
 
 Reference: ``math/linear/ConjugateGradient.hpp`` (operator contract
 ``A.multiply(pol, in, out)``, ``A.project(pol, v)`` boundary projection,
@@ -6,13 +6,13 @@ Reference: ``math/linear/ConjugateGradient.hpp`` (operator contract
 ``ConjugateResidual.hpp``, ``MinimumResidual.hpp``, and the dof-view helpers
 ``LinearOperators.hpp:14-41``.
 
-TPU re-design: the operator contract becomes plain callables over pytrees —
+Re-design: the operator contract becomes plain callables over pytrees —
 any pytree of arrays is a valid "dof view", so the same solver runs the
 128^3 Poisson bench and the implicit-MPM grid unknowns (``[nb,4,4,4,3]``)
 unchanged.  The solve loop is a ``lax.while_loop`` (single compiled program;
 no host round-trip per iteration, unlike the reference's per-iteration
 kernel launches + 1-element DtoH dot-product copies at
-ConjugateGradient.hpp:61-70 — on TPU the whole solve is one XLA program).
+ConjugateGradient.hpp:61-70 — here the whole solve is one XLA program).
 
 All dot products are pytree-wide fp32 reductions.
 """

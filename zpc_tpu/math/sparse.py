@@ -1,4 +1,4 @@
-"""Sparse matrices — TPU-native CSR with sort-based construction.
+"""Sparse matrices — CSR with sort-based construction.
 
 Reference: ``math/matrix/SparseMatrix.hpp`` (CSR/CSC built in parallel from
 COO triplets via the ``bht`` hash table + scans, ``build:210/255``, fast-build
@@ -6,7 +6,7 @@ COO triplets via the ``bht`` hash table + scans, ``build:210/255``, fast-build
 ``SparseMatrixOperations.hpp`` (``spmv_classic :36-99``, load-balanced
 ``spmv :164-238``, semiring masked ``spmv_mask :239-345``, ``spgemm :100``).
 
-TPU re-design:
+Re-design:
 
 * **Build**: no concurrent hash insert — COO triplets are stable-sorted by
   ``row*ncols+col`` packed keys, duplicates merged by ``segment_sum``, row
@@ -151,7 +151,7 @@ def spmv(A: CSRMatrix, x: jax.Array) -> jax.Array:
     """y = A @ x (classic plus-times; SparseMatrixOperations.hpp:36-99).
 
     Gather + segment-sum: load-balanced by construction (one lane per nnz),
-    the TPU analog of the reference's load-balanced spmv (:164-238).
+    the analog of the reference's load-balanced spmv (:164-238).
     """
     rid = A.row_ids
     prod = jnp.where(A.cols >= 0, A.vals * x[jnp.maximum(A.cols, 0)], 0)

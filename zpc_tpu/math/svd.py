@@ -1,11 +1,11 @@
-"""Small-matrix decompositions, batched for the VPU.
+"""Small-matrix decompositions, batched.
 
 Reference: 3x3/2x2 SVD (``math/matrix/SVD.hpp``), polar & QR-SVD
 (``QRSVD.hpp``), Givens rotations (``Givens.hpp``), eigen (``Eigen.hpp``).
 
-TPU re-design: the reference runs one decomposition per CUDA thread with
+Re-design: the reference runs one decomposition per CUDA thread with
 branchy scalar code.  Here every routine is written **branch-free over
-batches** so ``vmap`` lays thousands of 3x3 problems across VPU lanes:
+batches** so ``vmap`` lays thousands of 3x3 problems across vector lanes:
 
 * 2x2 SVD: closed-form rotation angles (no iteration).
 * 3x3 symmetric eigen: cyclic Jacobi with a *fixed* sweep count (data
@@ -56,11 +56,11 @@ def eigh3x3(A, sweeps: int = 6):
 
     Scalar form: the symmetric matrix is carried as its 6 unique entries and
     V as 9 scalar components; each rotation is ~20 elementwise FMAs.  (A
-    matrix-product formulation measured 1.8 s for 256k batches on v5e — tiny
-    batched matmuls and per-element updates are TPU anti-patterns.)  No
+    matrix-product formulation of tiny batched matmuls was far slower;
+    chosen before the move to the GPU, not re-measured on the H100.)  No
     intermediate ever has a trailing length-1 axis: such values, when XLA
-    hoists them out of a solver loop (e.g. the jvp-through-svd primal inside
-    implicit CG), are stored 128x lane-padded (512 MB each at 1M particles).
+    hoists them out of a solver loop (e.g. the jvp-through-svd primal
+    inside implicit CG), can be stored padded along that axis.
     """
     Ah = 0.5 * (A + jnp.swapaxes(A, -1, -2))
     a00, a11, a22 = Ah[..., 0, 0], Ah[..., 1, 1], Ah[..., 2, 2]
@@ -125,7 +125,7 @@ def eigh3x3(A, sweeps: int = 6):
      v0x, v0y, v0z, v1x, v1y, v1z, v2x, v2y, v2z) = s
 
     # descending sort by a 3-element compare-swap network (argsort +
-    # take_along_axis costs minor-axis gathers on TPU; where-swaps are free)
+    # take_along_axis costs minor-axis gathers; where-swaps are free)
     def cswap(wa, va, wb, vb):
         swap = wb > wa
         wa2 = jnp.where(swap, wb, wa)
@@ -286,9 +286,9 @@ def _svd3x3_jvp(sweeps, primals, tangents):
         si, sj = s[..., i], s[..., j]
         pij, pji = P[..., i, j], P[..., j, i]
         d, t = sj - si, sj + si
-        # absolute floor 1e-12 (not epsilon-tiny): TPUs flush subnormals
-        # to zero, and 1e-8 * 1e-30 == 1e-38 flushes -> 0/0 = NaN for
-        # zero/near-zero matrices (caught by a degenerate-input probe on
+        # absolute floor 1e-12 (not epsilon-tiny): accelerators may flush
+        # subnormals to zero, and 1e-8 * 1e-30 == 1e-38 flushes -> 0/0 = NaN
+        # for zero/near-zero matrices (caught by a degenerate-input probe on
         # real hardware)
         m2 = si * si + sj * sj + 1e-12
         inv_d = d / (d * d + 1e-8 * m2)
@@ -341,9 +341,9 @@ def polar_newton3x3(F, iters: int = 4, eps: float = 1e-6):
 
     Quadratic convergence for the MPM regime (F near a rotation): 4
     iterations reach 6e-7 relative agreement with the SVD polar factor
-    at 15% strain, at ~3.6x lower VPU cost than ``svd3x3`` (measured,
-    benchmarks/probe_polar.py).  ``det`` is clamped away from 0 so
-    degenerate F stays finite.
+    at 15% strain, at a fraction of the cost of ``svd3x3`` (chosen before
+    the move to the GPU; not re-measured on the H100).  ``det`` is
+    clamped away from 0 so degenerate F stays finite.
 
     Inversion caveat: for ``det F < 0`` this converges to the *improper*
     orthogonal factor (det = -1), not the Irving-convention proper

@@ -5,11 +5,11 @@ The reference builds a full fixed-size tensor template library; in JAX,
 adds what jnp lacks:
 
 * :func:`mm` / :func:`mv` — small-matrix products pinned to
-  ``Precision.HIGHEST``.  On TPU the default matmul precision is bf16; for
-  3x3 constitutive/decomposition math that is a correctness bug (observed:
-  Jacobi SVD stalling at ~1e-3), so every small-matrix product in the
-  framework routes through here.  Large MXU matmuls (P2G one-hot products
-  etc.) intentionally keep the default.
+  ``Precision.HIGHEST``.  The default matmul precision may round float32
+  operands (TF32 on the GPU); for 3x3 constitutive/decomposition math that is a
+  correctness bug (observed: Jacobi SVD stalling at ~1e-3), so every
+  small-matrix product in the framework routes through here.  Large matmuls
+  (P2G one-hot products etc.) intentionally keep the default.
 * common small-matrix ops the sim layer uses.
 """
 
@@ -28,11 +28,11 @@ def scale_trailing(w, X):
     broadcast of ``w``.
 
     Multiplies a scalar field ``w`` (shape = X.shape[:w.ndim]) into the
-    trailing dims of ``X`` channel-by-channel.  On TPU, a value shaped
-    ``[..., 1]`` that XLA hoists out of a solver loop (``lax.while_loop``)
-    is stored lane-padded 128x — at 1M particles each hoisted
-    ``bf16[16384,128,1]`` stencil broadcast cost 512 MB of HBM inside the
-    implicit CG loop.  Unrolling over the (static, tiny) trailing dims keeps
+    trailing dims of ``X`` channel-by-channel.  A value shaped ``[..., 1]``
+    that XLA hoists out of a solver loop (``lax.while_loop``) can be stored
+    padded along its minor dimension, which inflated the implicit CG
+    loop's memory (chosen before the move to the GPU; not re-measured on
+    the H100).  Unrolling over the (static, tiny) trailing dims keeps
     every loop-crossing value at ``w``'s own cleanly-tiled shape.
     """
     tail = X.shape[w.ndim:]
@@ -44,10 +44,9 @@ def scale_trailing(w, X):
 def mm(a, b):
     """Batched small-matrix @ matrix at full fp32 precision.
 
-    3x3 (and 2x2) operands take the **unrolled elementwise path**: on TPU,
-    batched tiny ``dot_general`` ops are dramatically slower than plain VPU
-    FMAs (measured: the 3x3-matmul-heavy SVD at 1.8 s vs <40 ms unrolled for
-    256k matrices).
+    3x3 (and 2x2) operands take the **unrolled elementwise path**: batched
+    tiny ``dot_general`` ops were far slower than plain elementwise FMAs
+    (chosen before the move to the GPU; not re-measured on the H100).
     """
     if a.shape[-2:] == (3, 3) and b.shape[-2:] == (3, 3):
         return mm33(a, b)
@@ -62,7 +61,7 @@ def mm(a, b):
 
 
 def mm33(a, b):
-    """Unrolled batched 3x3 multiply (pure VPU elementwise FMAs)."""
+    """Unrolled batched 3x3 multiply (pure elementwise FMAs)."""
     rows = []
     for i in range(3):
         rows.append(jnp.stack(

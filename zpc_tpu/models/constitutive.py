@@ -7,11 +7,11 @@ EquationOfState}``, and the fused stress kernels
 ``ConstitutiveModel_Vol_dP.hpp`` consumed by P2G
 (simulation/transfer/P2G.hpp:87-101).
 
-TPU re-design: every model is a frozen pytree dataclass with **batched**
+Re-design: every model is a frozen pytree dataclass with **batched**
 methods over ``[..., dim, dim]`` deformation gradients:
 
 * ``psi(F)``          — energy density
-* ``first_piola(F)``  — P = dpsi/dF (hand-derived, VPU-friendly)
+* ``first_piola(F)``  — P = dpsi/dF (hand-derived, elementwise)
 * ``kirchhoff(F)``    — tau = P F^T, the quantity the MPM transfer scatters
 
 Because everything is JAX, ``dP/dF`` for implicit integration comes from
@@ -167,13 +167,12 @@ class FixedCorotated(ElasticModel):
         """tau = P F^T with R from the Newton polar iteration (3-D).
 
         The corotated stress needs only R = polar(F), J and cof(F) — no
-        singular values — so the explicit hot path skips the Jacobi SVD:
-        0.258 -> 0.072 ms at 327k particles on v5e, 6e-7 relative
-        agreement at 15% strain (benchmarks/probe_polar.py).  For
-        inverted elements (det F < 0, outside the explicit stable-dt
-        regime) the Newton factor is the improper orthogonal one; the
-        SVD path (``first_piola``, 2-D, implicit linearization) keeps the
-        Irving-convention handling.
+        singular values — so the explicit hot path skips the Jacobi SVD (chosen
+        before the move to the GPU; not re-measured on the H100); 6e-7 relative
+        agreement at 15% strain.  For inverted elements (det F < 0, outside the
+        explicit stable-dt regime) the Newton factor is the improper orthogonal
+        one; the SVD path (``first_piola``, 2-D, implicit linearization) keeps
+        the Irving-convention handling.
         """
         if F.shape[-1] != 3:
             return super().kirchhoff(F)

@@ -6,7 +6,7 @@ with ``project_sigma`` / ``project_strain``; models
 NonAssociativeDruckerPrager}`` plus the NACC stress kernel
 (ConstitutiveModel_Vol_dP.hpp ``compute_stress_nacc``).
 
-TPU re-design: each model is a pure batched function
+Re-design: each model is a pure batched function
 ``F_projected, state' = project(F_trial, state)`` working on the SVD of the
 trial deformation gradient — branch-free ``where`` selects replace the
 reference's per-thread control flow.  State (e.g. ``logJp`` for hardening)

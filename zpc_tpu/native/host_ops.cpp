@@ -1,9 +1,9 @@
 // zpc_tpu native host runtime — C ABI.
 //
-// TPU-native counterpart of the reference's native host layer: the C-ABI
+// Counterpart of the reference's native host layer: the C-ABI
 // interop surface (py_interop/: allocators, container views, primitive
 // exports) and the IO hot loops (io/ParticleIO.hpp partio writers).  The
-// device compiler on TPU is XLA, so unlike the reference there is no NVRTC/
+// device compiler is XLA, so unlike the reference there is no NVRTC/
 // LLVM JIT here; what stays native is the host-side runtime: serialization
 // codecs, spatial-key preprocessing, and sort kernels used by data loading
 // and scene construction.  Exposed as a plain C ABI (reference

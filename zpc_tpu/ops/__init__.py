@@ -1,1 +1,1 @@
-"""Pallas TPU kernels (hand-written hot ops)."""
+"""Lane-level building blocks and static transfer tables."""

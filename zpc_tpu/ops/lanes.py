@@ -1,17 +1,14 @@
-"""Intra-block cooperative lane ops — the TPU vocabulary for the
+"""Intra-block cooperative lane ops — the vocabulary for the
 reference's warp layer (``execution/Intrinsics.hpp:102-165``:
 ``shfl_up/down/xor_sync``, ``ballot_sync``; ``container/Bht.hpp:545-560``
 warp-cooperative ``tile_insert``).
 
-On a TPU core the natural "warp" is the 128-wide vector lane axis of a
-VMEM tile, and cross-lane cooperation is expressed with full-width
-vector ops (roll, reversed-block reshapes, log-step scans) rather than
-per-thread intrinsics.  Every function here is pure ``jnp`` over a
-designated lane axis, so the same code runs
+Here the natural "warp" is a 128-wide lane axis of a tile, and cross-lane
+cooperation is expressed with full-width vector ops (roll, reversed-block
+reshapes, log-step scans) rather than per-thread intrinsics.  Every function
+here is pure ``jnp`` over a designated lane axis, so the same code runs
 
-* inside a Pallas kernel body (Mosaic lowers ``roll``/reshape/select —
-  the chunked-carry scan kernel in :mod:`.scan_pallas` is built from
-  exactly these shapes),
+* inside a Pallas kernel body (``roll``/reshape/select),
 * under ``pl.pallas_call(..., interpret=True)`` for oracle tests, and
 * in plain traced JAX (host-level analogs, like ``math/bits.py`` for
   the scalar intrinsics).

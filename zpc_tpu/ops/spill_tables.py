@@ -4,9 +4,8 @@ A bin's 6-node window overlaps its own 4^3 block plus up to 7 (+1-per-axis)
 neighbors.  ``_SPILL_ALL[d]`` maps a spiller's halo cube onto the 64 nodes
 of its ``-d`` neighbor block; ``_PULL_ALL[d]`` gathers the ``+d``
 neighbor's 64 block nodes back into the halo cube.  A one-hot [64, 216]
-dot *is* the slab shuffle — Mosaic has no cheap >2-D vector permutes, and
-on the XLA paths the same matmuls express the spill reduction exactly
-(fp32 one-hot matmuls at HIGHEST precision are exact).
+dot *is* the slab shuffle: the matmuls express the spill reduction
+exactly (fp32 one-hot matmuls at HIGHEST precision are exact).
 
 Consumed by the binned MPM/fluid transfer paths (mpm_binned.py,
 mpm_binned2.py slack=0 mode, fluid_binned2.py).  Reference lineage: the

@@ -9,7 +9,7 @@ exposes (``math/DihedralAngle.hpp`` hinge bending via
 reference ships the kernels and leaves assembly to downstream (zeno
 codim-IPC); here the assembled solver is part of the framework.
 
-TPU design notes: the whole step is one traced program — the incremental
+Design notes: the whole step is one traced program — the incremental
 potential ``Phi(y) = 1/(2 dt^2) |y - xhat|^2_M + E(y)`` is differentiated
 by autodiff, Newton directions come from matrix-free CG with
 Hessian-vector products (``jax.jvp`` of the gradient — no 12x12
@@ -48,9 +48,9 @@ __all__ = ["ClothSim", "ClothStencil", "ContactWindow", "make_cloth_grid",
 class ClothStencil:
     """Stencil (slice-form) topology for unions of regular grids.
 
-    The round-4 cloth ablation (docs/design.md) pinned the CG apply to
-    the indexed-ROW rate (~15-20 ns/row on v5e regardless of gather vs
-    scatter direction); rearranging which side indexes conserves rows.
+    A cloth ablation pinned the CG apply to the indexed-ROW rate
+    regardless of gather vs scatter direction (chosen before the move to the GPU; not re-measured on the H100); rearranging which
+    side indexes conserves rows.
     The only way OUT is structure: on a regular ``nx x ny`` grid every
     edge and hinge family lives at a static (i, j) offset, so the
     stretch/bend terms of the energy, the assembled GN operator, its
@@ -221,10 +221,9 @@ class ClothSim:
     kappa: jax.Array       # barrier stiffness
     mu: jax.Array          # ground friction coefficient (0 = off)
     epsv: jax.Array        # friction velocity mollifier (m/s)
-    # static transpose tables (round 4, see build_incidence): TPU
-    # scatter-adds serialize (~2.6 of the 3.8 ms apply at 8k verts,
-    # probe_r4_cloth4.py) — with these, every scatter in the CG
-    # operator becomes a bounded gather.  None -> scatter fallback.
+    # static transpose tables (see build_incidence): scatter-adds with
+    # duplicate indices serialized and dominated the apply (chosen before the move to the GPU; not re-measured on the H100) — with
+    # these, every scatter in the CG operator becomes a bounded gather.  None -> scatter fallback.
     edge_inc: Optional[jax.Array] = None    # [N, De] side*E+e, -1 pad
     hinge_inc: Optional[jax.Array] = None   # [N, Dh] h*4+slot, -1 pad
     # slice-form topology for unions of regular grids (round 4):
@@ -291,9 +290,9 @@ def make_cloth_grid(nx: int, ny: int, spacing: float, *,
 def build_incidence(sim: ClothSim) -> ClothSim:
     """Host-side static transpose tables (round 4).
 
-    TPU scatter-adds serialize on duplicate indices: the assembled CG
-    operator's three scatters measured 2.6 of its 3.8 ms at 8k verts
-    (probe_r4_cloth4.py).  Topology is static, so the transposes are
+    Scatter-adds serialize on duplicate indices: the assembled CG
+    operator's three scatters dominated its apply (chosen before the move to the GPU; not re-measured on the H100).  Topology is
+    static, so the transposes are
     precomputable: per vertex, the incident (edge, side) and
     (hinge, slot) contributions, padded to the max degree — apply
     becomes bounded row-gathers + masked sums, bit-equivalent up to f32
@@ -394,7 +393,7 @@ def self_contact_candidates(sim: ClothSim, x: jax.Array,
     (``decompose=True, cells=8``).  A flat sheet is the adversarial
     case for the plain band — every vertex box straddles a high morton
     plane, so the plain join certified NOTHING at the settled two-layer
-    state (measured in-band fraction 0.0000, probe_r5_cloth2.py) and
+    state (in-band fraction 0.0000) and
     the overflow flag was permanently True.  Decomposed entries get
     SHORT morton intervals by construction, but short in CODE space is
     not short in LEAF space: once the sheets settle and wrinkle, leaf
@@ -402,7 +401,7 @@ def self_contact_candidates(sim: ClothSim, x: jax.Array,
     join's 3*TL-leaf tile window — at ``tile=128`` (window ~96 leaves)
     51% of queries fell out of band at the settled 8k bench state;
     ``tile=512`` (window ~375 leaves) certifies 100% with the compare
-    volume still trivial at cloth-scale M (probe_r5_cloth3.py sweep).
+    volume still trivial at cloth-scale M.
     Returns are entry-granular with duplicated qid and are combined
     here by segment ops (counts scatter-ADD, band scatter-AND, hit
     slots via an occurrence-rank scatter — the cells are disjoint so
@@ -464,9 +463,9 @@ def self_contact_candidates(sim: ClothSim, x: jax.Array,
     band_ok = jnp.all(jnp.where(live_q, band & cnt_e_ok, True))
     # drop triangles incident to the vertex (statically excluded from
     # the window term; the dhat ball at rest sees few of the <= 6).
-    # Per-CORNER-column gathers: a [N, R*C, 3] row-gather lane-pads its
-    # 3-wide minor dim 42.7x (measured 15.5 GB HLO temp at 128k verts —
-    # the round-5 OOM), while three [N, R*C] column gathers are unpadded
+    # Per-CORNER-column gathers: a [N, R*C, 3] row-gather pads its
+    # 3-wide minor dim in the device layout (it ran out of memory at 128k
+    # verts; chosen before the move to the GPU; not re-measured on the H100), while three [N, R*C] column gathers are unpadded
     hs = jnp.maximum(hits_v, 0)
     incident = jnp.zeros(hits_v.shape, bool)
     for k in range(3):
@@ -869,8 +868,7 @@ def assemble_operator(sim: ClothSim, y: jax.Array, x: jax.Array, dt,
     per Newton iteration (round 4).
 
     The round-3 solver evaluated a full ``jvp``-of-grad per CG
-    iteration — ~50 autodiff energy/HVP sweeps per step, 257.6 ms at 8k
-    vertices (BENCHMARKS.md).  Every term of the incremental potential
+    iteration — ~50 autodiff energy/HVP sweeps per step.  Every term of the incremental potential
     has a standard assembled form whose CG-side application is a few
     batched gathers/3-vector ops/scatter-adds:
 
@@ -897,9 +895,9 @@ def assemble_operator(sim: ClothSim, y: jax.Array, x: jax.Array, dt,
     the PSD model (the universal IPC practice — the exact projected
     Hessian is what the reference's downstream codim solver builds).
 
-    ``contact_budget`` (round 4, active-set compaction): the round-4
-    ablation (docs/design.md) showed the CG apply is indexed-ROW-rate
-    bound and the self-contact term holds most of the rows (4 x N x C
+    ``contact_budget`` (round 4, active-set compaction): an ablation
+    showed the CG apply is indexed-ROW-rate bound (chosen before the move to the GPU; not re-measured on the H100) and the
+    self-contact term holds most of the rows (4 x N x C
     per apply).  With a budget K, the live (``bpp > 0``) rows are
     compacted ONCE at assembly (stable sort over the liveness mask)
     and the apply touches 4 x K rows instead — bit-equivalent up to
@@ -908,9 +906,8 @@ def assemble_operator(sim: ClothSim, y: jax.Array, x: jax.Array, dt,
     regime is live-SPARSE states (draping, glancing/early contact)
     where ``max_cand`` is sized for the worst vertex but few barriers
     are active.  Resting contact with ``dhat ~ spacing`` is live-DENSE
-    (probe_r4_cloth5.py census: 69% of slots live in the two-layer
-    bench), where only a covering budget is legitimate and the win is
-    small — measured in docs/design.md.  ``act_ovf`` in the returned
+    (69% of slots live in the two-layer bench), where only a covering
+    budget is legitimate and the win is small.  ``act_ovf`` in the returned
     operator is True when live rows exceeded K (the standard overflow
     contract: caller re-traces with a larger budget; padding rows
     carry ``bpp = 0`` so a clipped apply stays PSD — it under-models
@@ -1063,7 +1060,7 @@ def apply_operator(sim: ClothSim, op, p: jax.Array, dt) -> jax.Array:
     if op.get("sten") is not None:
         # slice-form stretch/bend (round 4): pure slicing + fma on the
         # per-grid [nx, ny, 3] views — ZERO indexed rows (the indexed-
-        # row rate is the apply's measured floor; docs/design.md)
+        # row rate bounds the apply)
         sten = sim.stencil
         s_fam, b_fam = op["sten"]
         views = _grid_views(sten, p)
@@ -1101,8 +1098,8 @@ def apply_operator(sim: ClothSim, op, p: jax.Array, dt) -> jax.Array:
               * op["gth"]).reshape(-1, 3)
         if sim.edge_inc is not None and sim.hinge_inc is not None:
             # scatter-free transpose (round 4): bounded row-gathers via
-            # the static incidence tables — TPU scatter-adds with
-            # duplicate indices serialize (probe_r4_cloth4.py)
+            # the static incidence tables — scatter-adds with
+            # duplicate indices serialize
             ft = jnp.concatenate([f, -f], axis=0)  # [2E, 3]
             gi = sim.edge_inc
             q = q + jnp.sum(jnp.where((gi >= 0)[..., None],

@@ -3,21 +3,21 @@
 Couples the reference's contact stack — LBVH broad phase
 (``container/Bvh.hpp:662-733``), barrier energies and derivatives
 (``geometry/Distance.hpp:233-2450``), CCD step limiting — into the grid
-implicit system, re-designed for the binned TPU layout:
+implicit system, re-designed for the binned layout:
 
 * **Broad phase at block granularity.**  Per-particle BVH queries at 1M
-  particles are the GPU formulation (atomically-appended pair lists); on
-  TPU the bins already group 128 particles per grid block, so ONE query
-  per bin (its dhat-padded window box) against the triangle LBVH finds
-  every candidate in ~2.5k banded-join queries instead of 1M, and the
-  resulting per-bin triangle lists are dense ``[B, max_tris]`` arrays —
-  no pair compaction, no scatters.
+  particles are the reference's formulation (atomically-appended pair lists);
+  here the bins already group 128 particles per grid block, so ONE query per
+  bin (its dhat-padded window box) against the triangle LBVH finds every
+  candidate in ~2.5k banded-join queries instead of 1M, and the resulting
+  per-bin triangle lists are dense ``[B, max_tris]`` arrays — no pair
+  compaction, no scatters.
 * **Dense narrow phase.**  Every (bin-lane, candidate-slot) pair
   evaluates point-triangle closest distance (Ericson clamping,
-  ``geometry/distance.py``) on the VPU; the barrier force uses the exact
+  ``geometry/distance.py``); the barrier force uses the exact
   envelope gradient ``∇d² = 2 (p - closest)`` and a Gauss-Newton PSD
   Hessian ``b''(d²) ∇d² ∇d²ᵀ`` (the b'·∇²d² term is NSD inside the
-  barrier and is dropped — the TPU replacement for the reference's
+  barrier and is dropped — in place of the reference's
   per-pair 12x12 eigendecomposition SPD projection, which would cost a
   batched eigh per pair here).
 * **Capacity contract.**  Truncated candidate lists (more than

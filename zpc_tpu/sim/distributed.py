@@ -2,20 +2,21 @@
 
 The reference's multi-GPU MPM groups particle objects by MemoryLocation and
 runs independent partitions per device (simulation/mpm/Simulator.cpp:44-118)
-— it has no cross-device reduction, so grids can't span devices.  The
-TPU-native design goes further (SURVEY §5.8, §7-M4):
+— it has no cross-device reduction, so grids can't span devices.  This
+design goes further (SURVEY §5.8, §7-M4):
 
 * **particles sharded** over the mesh axis (leading-dim sharding)
 * **grid replicated**: each device scatters its particles into a local
-  partial grid; one ``psum`` over ICI merges mass/momentum (the collective
-  replacement for atomic peer writes)
+  partial grid; one ``psum`` over the interconnect merges mass/momentum (the
+  collective replacement for atomic peer writes)
 * **block table union**: each device builds its local sorted block table;
   ``all_gather`` of the (small) key arrays + re-unique gives the identical
   global table everywhere — deterministic, no hash races by construction.
 * grid update + G2P run replicated/locally — no further communication.
 
 Cost model: the collective moves ``block_capacity * (bs^d) * 4`` floats per
-step (a few MB) over ICI; particles never migrate between devices.  Domain
+step (a few MB) over the interconnect; particles never migrate between devices.
+Domain
 -decomposed sharding (blocks sharded, ``ppermute`` halo exchange) is the
 planned next tier for grids too large to replicate.
 """
@@ -149,7 +150,7 @@ def explicit_step_sharded(sim: MPMSim, state: MPMState, dt, mesh: Mesh,
         payload = jnp.concatenate([mass_c[..., None], mom], -1)
         acc = jnp.zeros((cap_cells + 1, 4), payload.dtype)
         acc = acc.at[flat.reshape(-1)].add(payload.reshape(-1, 4))[:cap_cells]
-        acc = jax.lax.psum(acc, axis)            # ICI merge
+        acc = jax.lax.psum(acc, axis)            # cross-device merge
 
         # -- grid update (replicated compute) ----------------------------
         gm, gmv = acc[:, 0], acc[:, 1:]

@@ -6,7 +6,7 @@ cannot reach: each device owns a contiguous **morton-key range of blocks**
 and holds only its own grid rows, so the grid footprint scales 1/D with
 the mesh (reference analog: per-device partition groups,
 ``simulation/mpm/Simulator.cpp:44-118`` — which never exchanges between
-groups; SURVEY §5.8 names the halo exchange as the TPU deliverable).
+groups; SURVEY §5.8 names the halo exchange as the deliverable).
 
 Per step (SPMD inside ``shard_map``):
 
@@ -180,7 +180,7 @@ def explicit_step_dd(sim: MPMSim, dds: DDState, dt, mesh: Mesh, *,
     ``grid_template``: a SparseGrid giving dx/transform/block_size (its
     table/data are ignored — each device holds its own ``nb_local`` rows).
     Returns (new state, overflow flag); with ``with_stats=True`` also a
-    comm-volume diagnostics dict (VERDICT r3 item 7): per-hop LIVE row
+    comm-volume diagnostics dict: per-hop LIVE row
     counts on each ring (``fwd_rows``/``ret_rows``/``mig_rows``, [D-1]
     int32 summed over devices — with SFC locality most forward-halo rows
     absorb on hop 1) plus the static per-row payload sizes

@@ -25,14 +25,12 @@ from ..geometry.sparse_grid import neighbor_offsets
 from ..math.interpolation import bspline_weights
 from ..models.constitutive import EquationOfState
 from .mpm import MPMSim, MPMState
-from .mpm_binned2 import (BinnedConfig2, BinState, K, _axis_stencils,
-                          _ctx_g2p, _ctx_p2g, _make_ctx3, _node_positions,
-                          _rebin, _sort_into_bins)
+from .mpm_binned2 import (_PREC, BinnedConfig2, BinState, K,
+                          _axis_stencils, _ctx_g2p, _ctx_p2g, _make_ctx3,
+                          _node_positions, _rebin, _sort_into_bins)
 
 __all__ = ["bin_fluid_state", "explicit_fluid_step_binned2",
            "rollout_fluid_binned2", "unbin_fluid_state"]
-
-_PREC = jax.lax.Precision.HIGH
 
 # column layout: x3 v3 J1 C9 m1 vol1
 _J, _C0, _M, _VOL = 6, 7, 16, 17
@@ -102,9 +100,8 @@ def explicit_fluid_step_binned2(sim: MPMSim, state: BinState, dt,
 
     The 3-D transfers ride the shared mpm_binned2 context machinery
     (`_ctx_p2g` / `_ctx_g2p`), so `cfg.chunk_bins` and `cfg.recenter`
-    mean the same thing here as on the elastic path — the round-4
-    on-chip working-set fix (docs/design.md "Round 4") applies to the
-    fluid pipeline unchanged.
+    mean the same thing here as on the elastic path — the working-set
+    bound of chunking applies to the fluid pipeline unchanged.
     """
     assert isinstance(sim.model, EquationOfState)
     st = state
@@ -231,9 +228,8 @@ def _fluid_step3d_chunked(sim: MPMSim, st: BinState, dt,
 
     Physics-identical to :func:`_fluid_step3d` (same helpers); two
     ``lax.scan`` passes over bin-chunks of ``cfg.chunk_bins`` pin the
-    [B,K,·] working set at the chunk size so it keeps on-chip S(1)
-    buffers at any problem scale — the same scratch-cliff fix the
-    elastic `_step3d_chunked` carries (docs/design.md "Round 4").
+    [B,K,·] working set at the chunk size at any problem scale — the
+    same bound the elastic `_step3d_chunked` carries.
     fp32 sums are chunk-major reassociated: roundoff, not bitwise.
     """
     grid = st.grid

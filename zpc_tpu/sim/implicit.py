@@ -5,7 +5,7 @@ Reference: ``simulation/mpm/ImplicitMPM.hpp`` — ``ImplicitMPMSystem`` whose
 ``ForceDtSqrPlusMass`` (:11-60), a boundary ``Projector`` (:63-80), plugged
 into ``ConjugateGradient::solve`` over grid-velocity dofs (SURVEY §3.3).
 
-TPU re-design: the operator is the same gather -> dP/dF -> scatter pipeline
+Re-design: the operator is the same gather -> dP/dF -> scatter pipeline
 as one explicit transfer round, expressed with the *same* stencil arrays
 (computed once per step and closed over by the CG lambda).  The
 force-differential dP(F)[dF] comes from ``jax.jvp`` on the constitutive

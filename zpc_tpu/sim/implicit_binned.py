@@ -5,7 +5,7 @@ Dirichlet projection), but every transfer in the CG operator rides the
 binned workspace (:mod:`zpc_tpu.sim.mpm_binned`): stencils and selection
 matrices are built once per step, so each CG iteration is two einsum sweeps
 + two one-hot matmuls — no scatter/gather inside the solve loop.  This is
-what makes BASELINE config 5 (1M-particle implicit step) viable on TPU.
+what made BASELINE config 5 (1M-particle implicit step) viable.
 """
 
 from __future__ import annotations

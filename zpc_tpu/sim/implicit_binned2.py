@@ -6,8 +6,9 @@ direct-eval stencils, frozen bin->block mapping, spill selection) is
 built ONCE per step and shared by every CG operator application, and the
 particle state stays in bin order across a rollout.  This supersedes
 :mod:`zpc_tpu.sim.implicit_binned` (v1 workspace) as the BASELINE
-config-5 path: the v1 step re-packed/unpacked the particle state through
-row gathers every step (~13 ms at 1M), which dominated its 317 ms step.
+config-5 path: the v1 step re-packed/unpacked the particle state through row
+gathers every step (chosen before the move to the GPU; not re-measured on the
+H100).
 
 Reference lineage: ``simulation/mpm/ImplicitMPM.hpp:11-60`` (matrix-free
 ``multiply`` = G2P force-differential + ForceDtSqrPlusMass), boundary
@@ -61,10 +62,10 @@ def _implicit_bin_step(sim: MPMSim, st: BinState, dt, cfg: BinnedConfig2,
     overflow = ctx.overflow
     rel0 = ctx.rel0
     rel = [rel0[..., d] for d in range(3)]
-    # bin-chunked transfers (docs/design.md round 4): every CG operator
-    # application re-streams the [B,K,·] plane intermediates; past the
-    # on-chip S(1) capacity they spill to HBM and the solve loses the
-    # same 1.6x/particle as the explicit step did
+    # bin-chunked transfers: every CG operator application re-streams the
+    # [B,K,·] plane intermediates; chunking bounds their working set as in the
+    # explicit step (chosen before the move to the GPU; not re-measured on the
+    # H100)
     chunk = cfg.chunk_bins if (cfg.chunk_bins and ctx.use_seg) else 0
 
     # ---- one P2G pass for mass, APIC momentum, internal force --------------
@@ -75,7 +76,7 @@ def _implicit_bin_step(sim: MPMSim, st: BinState, dt, cfg: BinnedConfig2,
     f0 = jnp.einsum("bkij,bkj->bki", A_f, rel0)
     # contact forces at t^n ride the SAME transfer: fc is plain-weight
     # (no affine plane), so folding it into the f channels costs nothing
-    # while a separate plain P2G pass cost ~3 ms/step at 1M
+    # while a separate plain P2G pass would cost a full transfer
     pdiag = None
     if contact is not None:
         cset = contact.broad_phase(ctx, lane_alive)
@@ -83,7 +84,7 @@ def _implicit_bin_step(sim: MPMSim, st: BinState, dt, cfg: BinnedConfig2,
         fc, Hc = contact.forces_and_hessians(cset, xb, lane_alive)
         f0 = f0 + fc
         if contact_precond:
-            # barrier-diag Jacobi (VERDICT r3 item 5 re-test): grid
+            # barrier-diag Jacobi: grid
             # row-norm estimate of diag(dt^2 Kc) via the squared-weight
             # P2G the round-2 stiffness study built — once per STEP,
             # not per CG iteration.  The barrier Hessian is rank-1-ish
@@ -145,7 +146,8 @@ def _implicit_bin_step(sim: MPMSim, st: BinState, dt, cfg: BinnedConfig2,
             # contact Hessian acts on particle velocity: dv_p = G2P(u),
             # df_p = dt^2 H_p dv_p — plain-weight channels folded into
             # Qk's plain part (same one-transfer trick as the rhs; a
-            # separate P2G here cost ~3 ms x iters at 1M).  Distance.hpp
+            # separate P2G here would cost one transfer per iteration).
+            # Distance.hpp
             # grads/Hessians consumed by the grid solve.
             Qk = Qk + (dt * dt) * jnp.einsum("bkij,bkj->bki", Hc, s0)
         QAk = [dx * A2[..., :, d] for d in range(3)]
@@ -154,14 +156,13 @@ def _implicit_bin_step(sim: MPMSim, st: BinState, dt, cfg: BinnedConfig2,
     def A_op(u):
         return scale_trailing(gm, u) + K_action(u)
 
-    # Mass-only Jacobi (ImplicitMPM.hpp precondition()).  A scalar
-    # diag(M + dt^2 K) estimate via a squared-weight P2G of
-    # c0*dt^2*Dinv*vol*(2mu+lam) was tried and MEASURABLY HURTS
-    # (benchmarks/probe_precond.py: 7 -> 11-15 iters at stiff dt for
-    # c0 in [4,16]) — the stiffness row norm does not capture K's
-    # near-null bending modes, and distorting the mass balance slows
-    # exactly those.  Mass-only converges in <= 7 iters at rel_tol 1e-3
-    # across the probe regimes; the solver stops on tolerance.
+    # Mass-only Jacobi (ImplicitMPM.hpp precondition()).  A scalar diag(M +
+    # dt^2 K) estimate via a squared-weight P2G of c0*dt^2*Dinv*vol*(2mu+lam)
+    # was tried and HURTS (7 -> 11-15 iters at stiff dt for c0 in [4,16]) — the
+    # stiffness row norm does not capture K's near-null bending modes, and
+    # distorting the mass balance slows exactly those.  Mass-only converges in
+    # <= 7 iters at rel_tol 1e-3 across the probe regimes; the solver stops on
+    # tolerance.
     if pdiag is not None:
         pd = jnp.maximum(gm[..., None] + (dt * dt) * pdiag, 1e-30)
 
@@ -241,8 +242,8 @@ def implicit_step_binned2(sim: MPMSim, state, dt, cfg: BinnedConfig2,
     ``with_stats=True`` (BinState form) also returns the CG iteration
     count the solve actually used (tol-based early exit).
     ``contact_precond``: add the barrier Hessian's squared-weight grid
-    diagonal to the Jacobi preconditioner (see the round-4 study in
-    benchmarks/probe_r4_precond2.py / docs/design.md)."""
+    diagonal to the Jacobi preconditioner (round-4 study; the design log
+    is in git history, docs/design.md)."""
     if isinstance(state, BinState):
         st = _rebin(sim, state, cfg) if rebin else state
         return _implicit_bin_step(sim, st, dt, cfg, cg_iters, cg_tol,

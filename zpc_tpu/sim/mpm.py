@@ -1,4 +1,4 @@
-"""MPM pipeline (explicit APIC), TPU-native.
+"""MPM pipeline (explicit APIC).
 
 Reference call stack (SURVEY §3.3; the flagship workload):
 ``partition_for_particles`` (sparsity, SparsityCompute.tpp:5-25) ->
@@ -7,13 +7,13 @@ atomic scatter, simulation/transfer/P2G.hpp:26-135) ->
 ``ComputeGridBlockVelocity`` + ``ApplyBoundaryConditionOnGridBlocks``
 (simulation/grid/GridOp.hpp) -> ``G2PTransfer`` (G2P.hpp).
 
-TPU re-design (the north-star recipe, SURVEY §2.11(5) and §7-M1):
+Re-design (the north-star recipe, SURVEY §2.11(5) and §7-M1):
 
 * **No atomics.**  P2G scatter-adds 27 stencil contributions per particle
   into grid cells addressed by ``block_slot * bs^d + offset``; XLA lowers
-  the single fused ``scatter-add`` over ``[N*27, 4]`` lanes.  (A Pallas
-  block-binned MXU formulation lives in :mod:`zpc_tpu.ops.p2g` as the
-  optimized path.)
+  the single fused ``scatter-add`` over ``[N*27, 4]`` lanes.  (The
+  block-binned matmul formulation lives in :mod:`zpc_tpu.sim.mpm_binned2`
+  as the optimized path.)
 * **Partitioning** is the sort-based
   :meth:`~zpc_tpu.geometry.sparse_grid.SparseGrid.activate` with a +1 block
   dilation so the quadratic stencil (base..base+2) always lands in active
@@ -21,7 +21,7 @@ TPU re-design (the north-star recipe, SURVEY §2.11(5) and §7-M1):
 * **One jitted step.**  The whole step (partition, P2G, grid ops, G2P,
   plasticity, advection) is a single XLA program; ``dt`` is a traced scalar
   so CFL-adaptive stepping never recompiles.
-* All per-particle 3x3 math (stress, SVD) is batched VPU code at fp32
+* All per-particle 3x3 math (stress, SVD) is batched elementwise code at fp32
   precision (see :mod:`zpc_tpu.math.vecmat`).
 
 APIC transfer per Jiang et al.; the fused momentum matrix

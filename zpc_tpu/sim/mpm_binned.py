@@ -1,10 +1,10 @@
 """Binned MPM transfers — the fast XLA path, exposed as reusable machinery.
 
-Measured on v5e (256k particles): the baseline ``explicit_step``'s per-lane
-table queries (27N searchsorted gathers, ~800 ms) and 27N scatter-add
-(~474 ms) dominate.  This module removes both, following the structure the
-reference's upstream (claymore-style MGMPM) uses on GPUs — re-expressed as
-dense XLA ops:
+The baseline ``explicit_step``'s per-lane table queries (27N searchsorted
+gathers) and 27N scatter-add dominated its step (chosen before the move to the
+GPU; not re-measured on the H100).  This module removes both, following the
+structure the reference's upstream (claymore-style MGMPM) uses on GPUs —
+re-expressed as dense XLA ops:
 
 1. particles are stable-sorted by active-block slot and packed into
    fixed-size **bins** (``BIN_SIZE`` particles, each bin belongs to one
@@ -45,7 +45,7 @@ from .mpm import MPMSim, MPMState
 __all__ = ["explicit_step_binned", "BinnedConfig", "BinWorkspace",
            "prepare_bins", "BIN_SIZE"]
 
-BIN_SIZE = 128  # particles per bin: MXU-friendly contraction dim
+BIN_SIZE = 128  # particles per bin: matmul-friendly contraction dim
 
 
 @dataclasses.dataclass(frozen=True)
@@ -54,15 +54,13 @@ class BinnedConfig:
     halo: int = 2               # 4^3 block + 2 halo = 6^3 footprint
 
 
-# Precision policy (TPU matmuls default to 1-pass bf16 which truncates fp32
-# inputs): HIGH = 3-pass bf16 ~ fp32 quality for stencil contractions, and
-# *exact* for one-hot selections (one operand is exactly bf16-representable
-# 0/1, so all cross terms vanish).  CPU ignores these (always fp32).
-_PREC = jax.lax.Precision.HIGH
+# full float32 products in the stencil contractions and one-hot
+# selections (as in mpm_binned2): lower settings may run as TF32 on the GPU
+_PREC = jax.lax.Precision.HIGHEST
 
 
 def _einsum_nk(S, Q):
-    """[B,K,M] x [B,K,C] -> [B,M,C] (MXU; fp32 accumulation)."""
+    """[B,K,M] x [B,K,C] -> [B,M,C] (fp32 accumulation)."""
     return jnp.einsum("bkm,bkc->bmc", S, Q, precision=_PREC,
                       preferred_element_type=jnp.float32)
 
@@ -376,8 +374,8 @@ def prepare_bins(sim: MPMSim, state: MPMState, cfg: BinnedConfig
     nbr8_blocks = jnp.where(table.mask[:, None], nbr8_blocks, -1)
     tgt = nbr8_blocks[bin_block].T                      # [8, nbins]
     tgt = jnp.where(bin_live[None, :], tgt, -1)
-    # one-hot matmul wins at small scale (exact, MXU); segment/gather wins
-    # at large scale (the one-hot would be O(nb * 8B) HBM)
+    # one-hot matmul wins at small scale (exact); segment/gather wins at
+    # large scale (the one-hot would be O(nb * 8B) memory)
     use_segments = nb * 8 * nbins > (1 << 27)
     if use_segments:
         sel_cat = jnp.zeros((1, 1), jnp.float32)

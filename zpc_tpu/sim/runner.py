@@ -33,9 +33,8 @@ def simulate(sim: MPMSim, state: MPMState, *, dt: float, steps: int,
 
     ``path``: "baseline" | "binned" | "binned2" | "auto".  "binned2" (the
     auto choice without dt adaptation) runs whole frame segments as one
-    jitted bin-ordered rollout — the fast path on every backend (the
-    per-bin Pallas transfer kernels were retired in round 3: 83 ms/step
-    vs 3 ms for the XLA binned2 step, docs/design.md).  Frames are
+    jitted bin-ordered rollout — the fast path on every backend.  Frames
+    are
     written as bgeo through the background IO worker so exports overlap
     device compute.
     """

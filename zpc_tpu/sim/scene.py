@@ -6,7 +6,7 @@ Reference: ``simulation/init/Scene.hpp:13-54`` fluent builder
 the ``MPMSimulator`` builder's grouping + default-dt logic
 (``simulation/mpm/Simulator.cpp:44-130``).
 
-TPU build: objects accumulate host-side; ``build()`` packs every object into
+Build: objects accumulate host-side; ``build()`` packs every object into
 one particle state (per-particle Lame fields support heterogeneous stiffness
 with one model type) and derives the CFL dt from the stiffest object.
 """

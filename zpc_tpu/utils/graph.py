@@ -1,13 +1,13 @@
 """Graph algorithms (reference §2.9 ``graph/``).
 
 * connected components — reference: parallel union-find over SparseMatrix
-  topology (``graph/ConnectedComponents.hpp:7-65``).  TPU: label propagation
+  topology (``graph/ConnectedComponents.hpp:7-65``).  Here: label propagation
   with **pointer jumping** (min-label hooking + path doubling) — converges in
   O(log n) semiring SpMV rounds, no atomics.
 * greedy graph coloring with random priorities (``graph/Coloring.hpp:8-92``,
-  Gauss-Seidel ordering helper).  TPU: Luby/Jones-Plassmann rounds inside a
+  Gauss-Seidel ordering helper).  Here: Luby/Jones-Plassmann rounds inside a
   ``lax.while_loop``.
-* max flow (``graph/MaximumFlow.hpp:13-96``, BFS augmentation).  TPU:
+* max flow (``graph/MaximumFlow.hpp:13-96``, BFS augmentation).  Here:
   Edmonds-Karp with a frontier BFS as masked semiring SpMV rounds — bounded
   loops, dense frontier masks.
 """

@@ -4,7 +4,7 @@ Reference (§2.9): partio writers (``io/ParticleIO.hpp:11-34``), OBJ tri-mesh
 and VTK tet-mesh readers/writers (``io/MeshIO.hpp:23-140``), plus the
 background IO worker thread (``io/IO.h:7-40``).
 
-TPU build: host-side IO in plain Python/NumPy with an optional C-accelerated
+Build: host-side IO in plain Python/NumPy with an optional C-accelerated
 bgeo codec (:mod:`zpc_tpu.utils.native`, used when the compiled extension is
 present).  The async worker (:class:`AsyncIO`) mirrors the reference's
 singleton background-thread queue so sims overlap device compute with

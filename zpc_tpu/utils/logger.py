@@ -1,7 +1,7 @@
 """Logging (reference ``Logger.hpp:14-29`` — plog rolling-file logger with
 ``ZS_LOG/ZS_WARN/ZS_ERROR`` macros).
 
-TPU build: std-lib logging with an optional rolling file handler; module
+Build: std-lib logging with an optional rolling file handler; module
 -level convenience functions mirror the macro surface.
 """
 

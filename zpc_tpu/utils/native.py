@@ -7,8 +7,8 @@ allocator — and is **optional**: every consumer has a NumPy fallback, so
 the framework works without a compiler present.
 
 The library is built lazily with g++ on first use and cached next to the
-source (the reference's CMake build becomes a one-liner because the TPU
-build has no device code to compile here — XLA owns that).
+source (the reference's CMake build becomes a one-liner because there is
+no device code to compile here — XLA owns that).
 """
 
 from __future__ import annotations

@@ -4,7 +4,7 @@ Reference: ``profile/CppTimers.hpp`` (tick/tock ms), CUDA event timers
 (``cuda/profile/CudaTimers.cuh``), per-launch labeled profiling with
 ``source_location`` threaded through every policy call.
 
-TPU re-design: device timing must account for async dispatch —
+Re-design: device timing must account for async dispatch —
 :class:`Timer` blocks on results; :func:`bench` is the measurement loop used
 by ``bench.py`` (warmup + median, ``block_until_ready``);
 :func:`trace` wraps ``jax.profiler`` for XLA-level traces (the
